@@ -26,6 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _libs = {}
 BUILD_LOG = {}          # name -> nvcc's output (registers, spills per kernel)
 _lock = threading.Lock()
+_name_locks = {}        # name -> lock: different sources build in parallel
 
 
 def check_device(device) -> torch.device:
@@ -54,8 +55,12 @@ def _nvcc() -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if stale) and load ``csrc/<name>.cu``; raises on failure."""
+    """Build (if stale) and load ``csrc/<name>.cu``; raises on failure.
+
+    Threads loading different sources run their ``nvcc`` concurrently."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

@@ -62,15 +62,20 @@ def _check(packed: torch.Tensor, vs4: torch.Tensor):
         raise ValueError(f"packed on {packed.device}, vs4 on {vs4.device}")
 
 
+_ENTRY = []             # the configured C entry point, once loaded
+
+
 def _kernel_fn():
     """The C entry point of ``csrc/indicator_dot_2bit.cu`` (built at first
-    use), with its ctypes signature."""
-    fn = _cuda.load("indicator_dot_2bit").sg_indicator_dot_2bit
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    use), with its ctypes signature; set up once."""
+    if not _ENTRY:
+        fn = _cuda.load("indicator_dot_2bit").sg_indicator_dot_2bit
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _ENTRY.append(fn)
+    return _ENTRY[0]
 
 
 def _launch(packed: torch.Tensor, vs4: torch.Tensor) -> torch.Tensor:
