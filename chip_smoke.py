@@ -7,16 +7,21 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. the card (``nvidia-smi``), torch and CUDA versions;
-2. build every kernel of the fit and scan paths from
+2. build every kernel of the fit, scan and aggregate paths from
    ``saigegds_tpu_torch/csrc`` (one ``nvcc`` per source, all at once) and
    print each kernel's registers and spills;
-3. kernel B3 (``indicator_dot_2bit``) against its plain PyTorch version on
-   the card, bit-equal, at a ragged shape and at the scan's main-path shape
-   (B = 1024 variants, N = 430,000 samples, C = 128); kernels B1
-   (``plane_dot_fwd``) and B2 (``plane_dot_t``) against theirs, bit-equal,
-   at a ragged shape and at the fit's main-path shapes (M = 16,384 GRM
-   variants, N = 430,000, C = 128 and 256); every time is the median of
-   several runs timed with CUDA events;
+3. every kernel against its plain PyTorch version on the card, bit-equal,
+   at a ragged shape and at its main-path shapes: B3
+   (``indicator_dot_2bit``) at the scan's block (B = 1024 variants,
+   N = 430,000 samples, C = 128); B1 (``plane_dot_fwd``) and B2
+   (``plane_dot_t``) at the fit's (M = 16,384 GRM variants, N = 430,000,
+   C = 128 and 256); B4 (``indicator_dot``, int8 codes) at the aggregate
+   tests' single-variant batch (B = 256, N = 430,000, C = 128); B5
+   (``decode_codes``) on a ragged stream full of escapes and empty rows and
+   on rare-variant streams of 256 and 2,048 rows x N = 430,000.  Every time
+   is the median of several runs timed with CUDA events, printed beside the
+   plain version's and the bound (the larger of the bytes the function must
+   move at 3.35 TB/s and its int8 operations at 1,979 TOP/s);
 4. the null-GLMM fit at full width: a synthetic GDS of 16,384 GRM variants
    x 430,000 samples (allele frequencies 0.05-0.5, 0.5% missing) and a
    polygenic binary phenotype (true tau_G ~ 0.6, 3 covariates), then
@@ -33,7 +38,20 @@ and prints no result line):
    blocks; B3 must launch once per block, every p-value must lie in
    [0, 1] and some variants must go through SPA; then the first block
    again on the CPU, whose table must agree with the card's within 1e-10
-   relative.
+   relative, and on the card through the int8 route
+   (``packed_2bit=False``, one B4 launch), held to the CPU's table too;
+7. the aggregate tests from the fitted model at N = 430,000: a GDS of
+   16,384 variants with an exome's MAF spectrum (50% ultra-rare with 1-9
+   minor alleles, 40% rare, 10% low-frequency, 0.5% missing), 512 gene
+   units of 8-64 contiguous variants (8 of them enriched in the fit's
+   cases), read frame by frame as a file above the whole-matrix cache is;
+   ``assoc_acat_o(..., device="cuda")`` over all units with the default
+   ``AggregateConfig``: every p-value in [0, 1], some rows through SPA, and
+   B5 launched once per sparse payload, B4 once per sparse single-variant
+   payload; ``assoc_burden`` and ``assoc_acat_v`` on the card over the
+   first 64 units equal ACAT-O's burden and ACAT-V columns within 1e-12;
+   the first 32 units on the CPU agree with the card within 1e-10 relative
+   on every p-value column, with the same NaN pattern.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Data is made from a fixed seed; the
@@ -42,7 +60,6 @@ end.
 """
 
 import json
-import math
 import os
 import shutil
 import subprocess
@@ -70,7 +87,16 @@ MV_ROWS, MV_COLS = 2048, 31  # the card-vs-CPU GRM product
 RTOL_MV = 1e-12         # card vs CPU GRM product (f64 atomics reorder)
 RTOL_FIT = 1e-8         # card vs CPU small fit
 FORMULA = "y ~ x1 + x2 + x3"
-SOURCES = ["indicator_dot_2bit", "plane_dot"]
+SOURCES = ["indicator_dot_2bit", "plane_dot", "indicator_dot", "decode_codes"]
+B4_SHAPES = [(37, 1031), (256, N_SAMPLES)]     # B, N at C = 128
+B5_ROWS = (256, 2048)   # rare-variant streams at N = N_SAMPLES
+N_AGG = 16_384          # variants of the aggregate phase's GDS
+N_UNITS = 512           # gene units of 8-64 contiguous variants
+ENRICHED_UNITS = (1, 40, 100, 170, 250, 330, 410, 490)
+AGG_SUB, AGG_CPU = 64, 32   # units of the burden/ACAT-V and CPU checks
+RTOL_AGG = 1e-12        # burden and ACAT-V against ACAT-O on the card
+HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
+INT8_OPS_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 
 
 def log(msg: str):
@@ -92,6 +118,67 @@ def median_ms(fn, runs: int) -> float:
     return float(np.median(times))
 
 
+def kernel_modules():
+    from saigegds_tpu_torch.ops import grm_kernel, score_kernel, sparse_codes
+    return grm_kernel, score_kernel, sparse_codes
+
+
+def reset_launches():
+    for mod in kernel_modules():
+        for name in mod.LAUNCHES:
+            mod.LAUNCHES[name] = 0
+
+
+def launches() -> dict:
+    """Launch count of every kernel, by name."""
+    return {name: n for mod in kernel_modules()
+            for name, n in mod.LAUNCHES.items()}
+
+
+def expect_launches(what: str, want: dict):
+    """Every kernel launched as often as ``want`` says (0 when absent)."""
+    got = launches()
+    bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    return got
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    at the device memory rate and the int8 operations at the tensor-core
+    peak (H100 SXM at 700 W)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT8_OPS_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare_and_time(label: str, kern, plain, runs: int, least: dict,
+                     plain_runs: int = 3, exact=None) -> dict:
+    """Kernel against its plain version on the same tensors (bit-equal,
+    and equal to ``exact`` when given), then the median times of both,
+    in turns: plain, kernel, kernel, plain, beside ``least`` (`bound`)."""
+    import torch
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = 0.0 if torch.equal(got, want) else \
+        float((got.double() - want.double()).abs().max())
+    if err or (exact is not None and not torch.equal(got, exact)):
+        raise AssertionError(f"{label} disagrees with its plain version "
+                             f"(max abs err {err}) or with its input")
+    del got, want
+    p1 = median_ms(plain, plain_runs)
+    k1 = median_ms(kern, runs)
+    k2 = median_ms(kern, runs)
+    p2 = median_ms(plain, plain_runs)
+    ms, plain_ms = float(np.median([k1, k2])), float(np.median([p1, p2]))
+    log(f"{label}: bit-equal to the plain version; kernel {ms:.3f} ms "
+        f"(runs {k1:.3f}, {k2:.3f}), plain {plain_ms:.3f} ms (runs "
+        f"{p1:.3f}, {p2:.3f}), bound {least['bound_ms']:.4f} ms "
+        f"({least['bound_by']})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least)
+
+
 def check_kernel(B: int, N: int, device, gen) -> dict:
     """B3 on the card vs its plain version on the same tensors."""
     import torch
@@ -103,25 +190,12 @@ def check_kernel(B: int, N: int, device, gen) -> dict:
     vs4 = torch.randint(-64, 65, (4, n4, 128), dtype=torch.int8,
                         device=device, generator=gen)
     vs4.view(4 * n4, 128)[N:] = 0        # padded samples meet zero rows
-    got = score_kernel.indicator_dot_2bit(packed, vs4)
-    want = score_kernel.indicator_dot_2bit_plain(packed, vs4)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"B3 disagrees with its plain version at "
-                             f"B={B}, N={N}: max abs err {err}")
-    kernel = lambda: score_kernel.indicator_dot_2bit(packed, vs4)
-    plain = lambda: score_kernel.indicator_dot_2bit_plain(packed, vs4)
-    # warmed up by the check above; alternate plain, kernel, kernel, plain
-    p1 = median_ms(plain, 3)
-    k1 = median_ms(kernel, 10)
-    k2 = median_ms(kernel, 10)
-    p2 = median_ms(plain, 3)
-    ms, plain_ms = float(np.median([k1, k2])), float(np.median([p1, p2]))
-    log(f"B3 B={B} N={N} C=128: bit-equal to the plain version; kernel "
-        f"{ms:.3f} ms (runs {k1:.3f}, {k2:.3f}), plain {plain_ms:.3f} ms "
-        f"(runs {p1:.3f}, {p2:.3f})")
-    return dict(B=B, N=N, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return compare_and_time(
+        f"B3 B={B} N={N} C=128",
+        lambda: score_kernel.indicator_dot_2bit(packed, vs4),
+        lambda: score_kernel.indicator_dot_2bit_plain(packed, vs4), 10,
+        bound(B * n4 + vs4.numel() + 4 * B * 3 * 128,
+              2 * 3 * B * 4 * n4 * 128))
 
 
 def check_grm(M: int, N: int, C: int, device, gen) -> dict:
@@ -141,29 +215,107 @@ def check_grm(M: int, N: int, C: int, device, gen) -> dict:
     d4.view(4 * n4, C)[N:] = 0
     dm = torch.randint(-64, 65, (M, C), dtype=torch.int8, device=device,
                        generator=gen)
+    ops = 2 * M * 4 * n4 * C
     out = {}
-    for name, rhs in (("plane_dot_fwd", d4), ("plane_dot_t", dm)):
+    for name, rhs, out_bytes in (("plane_dot_fwd", d4, 4 * M * C),
+                                 ("plane_dot_t", dm, 4 * 4 * n4 * C)):
         kern = getattr(grm_kernel, name)
         plain = getattr(grm_kernel, name + "_plain")
-        got = kern(packed, rhs)
-        want = plain(packed, rhs)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"at M={M}, N={N}, C={C}: max abs err {err}")
-        del got, want
-        # warmed up by the check above; alternate plain, kernel, kernel, plain
-        p1 = median_ms(lambda: plain(packed, rhs), 3)
-        k1 = median_ms(lambda: kern(packed, rhs), 5)
-        k2 = median_ms(lambda: kern(packed, rhs), 5)
-        p2 = median_ms(lambda: plain(packed, rhs), 3)
-        ms, plain_ms = float(np.median([k1, k2])), float(np.median([p1, p2]))
-        log(f"{name} M={M} N={N} C={C}: bit-equal to the plain version; "
-            f"kernel {ms:.3f} ms (runs {k1:.3f}, {k2:.3f}), plain "
-            f"{plain_ms:.3f} ms (runs {p1:.3f}, {p2:.3f})")
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        out[name] = compare_and_time(
+            f"{name} M={M} N={N} C={C}", lambda: kern(packed, rhs),
+            lambda: plain(packed, rhs), 5,
+            bound(packed.numel() + rhs.numel() + out_bytes, ops))
     return out
+
+
+def check_b4(B: int, N: int, device, gen) -> dict:
+    """B4 on the card vs its plain version: int8 codes of all four values
+    against int8 slices in [-64, 64], C = 128."""
+    import torch
+    from saigegds_tpu_torch.ops import score_kernel
+
+    codes = torch.randint(0, 4, (B, N), dtype=torch.int8, device=device,
+                          generator=gen)
+    vs = torch.randint(-64, 65, (N, 128), dtype=torch.int8, device=device,
+                       generator=gen)
+    return compare_and_time(
+        f"B4 B={B} N={N} C=128",
+        lambda: score_kernel.indicator_dot(codes, vs),
+        lambda: score_kernel.indicator_dot_plain(codes, vs), 10,
+        bound(B * N + N * 128 + 4 * B * 3 * 128, 2 * 3 * B * N * 128))
+
+
+def check_b5(codes: np.ndarray, device) -> dict:
+    """B5 on the card vs its plain version and the codes that were
+    encoded."""
+    import torch
+    from saigegds_tpu_torch.ops import sparse_codes
+
+    B, N = codes.shape
+    entries, row_ptr = sparse_codes.encode_sparse_rows(codes)
+    e = torch.from_numpy(entries).to(device)
+    rp = torch.from_numpy(row_ptr).to(device)
+    return compare_and_time(
+        f"B5 {B} rows x N={N}, {len(entries)} entries",
+        lambda: sparse_codes.decode_codes(e, rp, B, N),
+        lambda: sparse_codes.decode_codes_plain(e, rp, B, N), 10,
+        bound(B * N + 2 * len(entries) + 4 * (B + 1), 0),
+        exact=torch.from_numpy(codes).to(device))
+
+
+def ragged_stream_codes(seed: int) -> np.ndarray:
+    """int8 codes [37, 49,162] whose stream is full of escapes (gaps above
+    16,383): half the rows nearly empty, an empty first row, rows with gaps
+    of exactly the escape step, one long escape run, an all-missing row
+    and three trailing empty rows."""
+    from saigegds_tpu_torch.ops.sparse_codes import ESC_STEP
+    rng = np.random.default_rng(seed)
+    B, N = 37, 3 * ESC_STEP + 10
+    frac = np.where(np.arange(B) < B // 2, 2e-5, 0.01)[:, None]
+    nz = rng.random((B, N)) < frac
+    codes = np.zeros((B, N), np.int8)
+    codes[nz] = rng.choice(np.int8([1, 2, 3]), size=int(nz.sum()))
+    codes[0] = 0
+    codes[3] = 0
+    codes[3, [0, ESC_STEP, ESC_STEP + 1, N - 1]] = [1, 2, 3, 1]
+    codes[4, : N - 2] = 0
+    codes[5] = 3
+    codes[-3:] = 0
+    return codes
+
+
+def make_rare_codes(n_variants: int, n_samples: int, seed: int,
+                    cases=None, enriched=()) -> np.ndarray:
+    """int8 codes [M, N] of an exome at biobank scale, drawn sparsely (per
+    variant, minor-allele positions from the seed): 50% ultra-rare with
+    1-9 minor alleles, 40% rare (MAF 1e-4 to 1e-2, log-uniform), 10%
+    low-frequency (MAF 0.01-0.05); 1% ALT-major; then 0.5% missing.  The
+    variants in ``enriched`` draw their minor alleles from ``cases`` (all
+    of them when ultra-rare, half otherwise)."""
+    rng = np.random.default_rng(seed)
+    N = n_samples
+    u = rng.random(n_variants)
+    maf = np.where(u < 0.9, np.exp(rng.uniform(np.log(1e-4), np.log(1e-2),
+                                               n_variants)),
+                   rng.uniform(0.01, 0.05, n_variants))
+    n_minor = np.where(u < 0.5, rng.integers(1, 10, n_variants),
+                       rng.binomial(2 * N, maf))
+    enriched = set(np.asarray(enriched).tolist())
+    codes = np.zeros((n_variants, N), np.int8)
+    for i, k in enumerate(n_minor.tolist()):
+        if i in enriched:
+            k_case = k if k < 10 else k // 2
+            idx = np.concatenate([cases[rng.integers(0, len(cases), k_case)],
+                                  rng.integers(0, N, k - k_case)])
+        else:
+            idx = rng.integers(0, N, k)
+        pos, cnt = np.unique(idx, return_counts=True)
+        codes[i, pos] = np.minimum(cnt, 2)
+    alt_major = np.flatnonzero(rng.random(n_variants) < 0.01)
+    codes[alt_major] = 2 - codes[alt_major]
+    flat = codes.reshape(-1)
+    flat[rng.integers(0, flat.size, rng.binomial(flat.size, MISS_RATE))] = 3
+    return codes
 
 
 def make_data(y: np.ndarray, n_variants: int, device, seed: int):
@@ -320,14 +472,16 @@ def compare_fits(gpu, cpu, inst_gpu: dict, inst_cpu: dict) -> float:
     return worst
 
 
-def scan(gds: str, model, device: str, variant_mask=None):
+def scan(gds: str, model, device: str, variant_mask=None,
+         packed_2bit: bool = True):
     """(table, instrument dict, wall seconds) of one assoc_spa run."""
     import torch
     from saigegds_tpu_torch import ScanConfig, assoc_spa
 
     inst = {}
     t0 = time.perf_counter()
-    tab = assoc_spa(gds, model, ScanConfig(block_size=BLOCK),
+    tab = assoc_spa(gds, model, ScanConfig(block_size=BLOCK,
+                                           packed_2bit=packed_2bit),
                     variant_mask=variant_mask, instrument=inst,
                     device=device)
     if device == "cuda":
@@ -367,9 +521,134 @@ def compare_tables(gpu: dict, cpu: dict) -> float:
     return worst
 
 
+def unit_sizes(seed: int) -> np.ndarray:
+    """N_UNITS unit sizes in [8, 64] that add up to N_AGG (32 on average)."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(8, 57, N_UNITS)
+    while sizes.sum() != N_AGG:
+        i = rng.integers(N_UNITS)
+        step = int(np.sign(N_AGG - sizes.sum()))
+        if 8 <= sizes[i] + step <= 64:
+            sizes[i] += step
+    return sizes
+
+
+def max_rel(a, b, what: str) -> float:
+    """Max relative difference of two p-value columns that must share
+    their NaN pattern."""
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    if not np.array_equal(np.isnan(a), np.isnan(b)):
+        raise AssertionError(f"{what}: NaN patterns differ")
+    m = ~np.isnan(a)
+    rel = np.abs(a[m] - b[m]) / np.maximum(np.abs(b[m]),
+                                           np.finfo(float).tiny)
+    return float(rel.max(initial=0.0))
+
+
+def aggregate(model, y: np.ndarray, work: str) -> dict:
+    """Phase 7: the aggregate tests at full width on the card, held
+    against themselves (burden, ACAT-V) and the CPU (first units)."""
+    import torch
+    from saigegds_tpu_torch import (AggregateConfig, assoc_acat_o,
+                                    assoc_acat_v, assoc_burden, shard_units,
+                                    units_from_groups)
+    from saigegds_tpu_torch.io.gds_write import write_seqarray_gds
+    from saigegds_tpu_torch.io.seqarray import SeqData
+
+    t0 = time.perf_counter()
+    sizes = unit_sizes(SEED + 3)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    enriched = np.concatenate([np.arange(starts[u], starts[u] + sizes[u])
+                               for u in ENRICHED_UNITS])
+    codes = make_rare_codes(N_AGG, len(y), SEED + 2,
+                            cases=np.flatnonzero(y > 0.5), enriched=enriched)
+    t_gen = time.perf_counter() - t0
+    nnz = np.count_nonzero(codes, axis=1)
+    gds = os.path.join(work, "exome.gds")
+    write_seqarray_gds(gds, codes, compress="ZIP_ra")
+    del codes
+    groups = {f"unit{u:03d}": list(range(a + 1, a + n + 1))
+              for u, (a, n) in enumerate(zip(starts.tolist(),
+                                             sizes.tolist()))}
+    units = units_from_groups(SeqData(gds), groups)
+    log(f"aggregate setup: {N_AGG} variants x {len(y)} samples, "
+        f"{nnz.sum() / N_AGG:.0f} nonzero codes per variant (median "
+        f"{np.median(nnz):.0f}), {len(units)} units of {sizes.min()}-"
+        f"{sizes.max()} variants, GDS "
+        f"{os.path.getsize(gds) / 1e6:.0f} MB; drawn in {t_gen:.1f} s, "
+        f"{time.perf_counter() - t0:.1f} s with the write")
+
+    cfg = AggregateConfig()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    inst = {}
+    t0 = time.perf_counter()
+    tab = assoc_acat_o(gds, model, units, cfg, instrument=inst,
+                       device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pay = inst["payloads"]
+    n_sparse = pay.get("burden_sparse", 0) + pay.get("single_sparse", 0)
+    counts = expect_launches("ACAT-O", {
+        "decode_codes": n_sparse,
+        "indicator_dot": pay.get("single_sparse", 0),
+        "indicator_dot_2bit": pay.get("single_2bit", 0)})
+    if not (counts["decode_codes"] and counts["indicator_dot"]):
+        raise AssertionError(f"B4 or B5 never launched: payloads {pay}")
+    pcols = [c for c in tab if c.startswith("pval")]
+    for c in pcols:
+        p = tab[c][np.isfinite(tab[c])]
+        if not (len(p) and np.all((p >= 0) & (p <= 1))):
+            raise AssertionError(f"{c}: no finite p-value, or outside [0, 1]")
+    if not inst.get("spa_n"):
+        raise AssertionError("no row went through SPA")
+    host = {k: round(inst.get(k, 0.0), 3)
+            for k in ("fetch_s", "tally_s", "encode_s", "upload_s")}
+    log(f"ACAT-O on the card: {len(units)} units, {wall:.2f} s wall = host "
+        f"{sum(host.values()):.2f} s {json.dumps(host)} + waiting on the "
+        f"card {inst.get('wait_s', 0.0):.2f} s + SPA {inst['spa_s']:.2f} s "
+        f"({inst['spa_n']} rows) + the rest; device time of phase 1 "
+        f"{inst.get('device_s', 0.0):.3f} s; payloads {json.dumps(pay)}; "
+        f"launches B5 {counts['decode_codes']}, B4 "
+        f"{counts['indicator_dot']}, B3 {counts['indicator_dot_2bit']}; "
+        f"{int(np.isfinite(tab['pval']).sum())} finite p, min "
+        f"{np.nanmin(tab['pval']):.3e}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # burden and ACAT-V over the first units against ACAT-O's columns
+    t0 = time.perf_counter()
+    first = shard_units(units, 0, N_UNITS // AGG_SUB)
+    worst_sub = 0.0
+    for fn, tag in ((assoc_burden, "pval.b"), (assoc_acat_v, "pval.v")):
+        sub = fn(gds, model, first, cfg, device="cuda")
+        for c in (c for c in sub if c.startswith(tag)):
+            worst_sub = max(worst_sub, max_rel(sub[c], tab[c][:AGG_SUB], c))
+    if worst_sub > RTOL_AGG:
+        raise AssertionError(f"burden/ACAT-V vs ACAT-O: relative error "
+                             f"{worst_sub:.3e} > {RTOL_AGG}")
+    log(f"burden and ACAT-V on the card, first {AGG_SUB} units: ACAT-O's "
+        f"columns within {worst_sub:.3e} (limit {RTOL_AGG}), "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the first units on the CPU
+    t0 = time.perf_counter()
+    cpu = assoc_acat_o(gds, model, shard_units(units, 0, N_UNITS // AGG_CPU),
+                       cfg, device="cpu")
+    if not np.array_equal(cpu["numvar"], tab["numvar"][:AGG_CPU]):
+        raise AssertionError("numvar differs between card and CPU")
+    worst_cpu = max(max_rel(tab[c][:AGG_CPU], cpu[c], c) for c in pcols)
+    if worst_cpu > RTOL:
+        raise AssertionError(f"ACAT-O card vs CPU: relative error "
+                             f"{worst_cpu:.3e} > {RTOL}")
+    log(f"first {AGG_CPU} units on the CPU: every p-value column within "
+        f"{worst_cpu:.3e} of the card (limit {RTOL}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches=counts, wall=wall)
+
+
 def main() -> int:
     import torch
-    from saigegds_tpu_torch.ops import _cuda, grm_kernel, score_kernel
+    from saigegds_tpu_torch.ops import _cuda
     from saigegds_tpu_torch.io.gds_write import write_seqarray_gds
 
     if not torch.cuda.is_available():
@@ -399,6 +678,11 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     checks = [check_kernel(B, N, device, gen) for B, N in KERNEL_SHAPES]
     grm_checks = [check_grm(M, N, C, device, gen) for M, N, C in GRM_SHAPES]
+    b4_checks = [check_b4(B, N, device, gen) for B, N in B4_SHAPES]
+    rare = make_rare_codes(max(B5_ROWS), N_SAMPLES, SEED + 4)
+    b5_checks = [check_b5(ragged_stream_codes(SEED), device)] + \
+        [check_b5(rare[:rows], device) for rows in B5_ROWS]
+    del rare
 
     work = os.path.join(ROOT, "_smoke")
     os.makedirs(work, exist_ok=True)
@@ -414,16 +698,10 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
 
         torch.cuda.reset_peak_memory_stats()
-        for k in grm_kernel.LAUNCHES:
-            grm_kernel.LAUNCHES[k] = 0
-        score_kernel.LAUNCHES = 0
+        reset_launches()
         model, inst = fit(gds_fit, data, "cuda")
-        fit_launches = dict(grm_kernel.LAUNCHES)
-        if set(fit_launches.values()) != {inst["matvecs"]} or \
-                score_kernel.LAUNCHES:
-            raise AssertionError(f"launches {fit_launches} (B3 "
-                                 f"{score_kernel.LAUNCHES}) for "
-                                 f"{inst['matvecs']} GRM products")
+        fit_launches = expect_launches("the fit", {
+            "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"]})
         check_fit(model)
         log(f"fit on the card: tau {model.tau.tolist()}, "
             f"{inst['outer_iterations']} outer iterations, "
@@ -465,15 +743,11 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
 
         torch.cuda.reset_peak_memory_stats()
-        for k in grm_kernel.LAUNCHES:
-            grm_kernel.LAUNCHES[k] = 0
-        score_kernel.LAUNCHES = 0
+        reset_launches()
         tab, inst, wall = scan(gds, model, "cuda")
-        launches = score_kernel.LAUNCHES
         n_blocks = -(-N_VARIANTS // BLOCK)
-        if launches != n_blocks or any(grm_kernel.LAUNCHES.values()):
-            raise AssertionError(f"B3 launched {launches} times for "
-                                 f"{n_blocks} blocks")
+        scan_launches = expect_launches("the scan",
+                                        {"indicator_dot_2bit": n_blocks})
         check_table(tab)
         refined = int(np.sum(tab["pval"] != tab["p.norm"]))
         if inst["spa_n"] == 0 or refined == 0:
@@ -484,7 +758,7 @@ def main() -> int:
         log(f"scan on the card: {len(tab['pval'])} of {N_VARIANTS} variants "
             f"tested, {inst['spa_n']} through SPA ({refined} changed), "
             f"min p {tab['pval'].min():.3e}, {wall:.2f} s wall, "
-            f"{N_VARIANTS / wall:.1f} variants/s, B3 launches {launches}, "
+            f"{N_VARIANTS / wall:.1f} variants/s, B3 launches {n_blocks}, "
             f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         log(f"  stage sums (s, stages overlap): "
@@ -498,30 +772,49 @@ def main() -> int:
         log(f"first block on the CPU: {len(tab_cpu['pval'])} rows agree with "
             f"the card's, max relative error {worst:.3e} (limit {RTOL}), "
             f"{wall_cpu:.1f} s")
+        # the first block on the card through the int8 route (B4)
+        reset_launches()
+        tab_i8, _, wall_i8 = scan(gds, model, "cuda", variant_mask=mask,
+                                  packed_2bit=False)
+        expect_launches("the int8 route", {"indicator_dot": 1})
+        worst_i8 = compare_tables(tab_i8, tab_cpu)
+        log(f"first block on the card, int8 route: one B4 launch, the CPU's "
+            f"table within {worst_i8:.3e} (limit {RTOL}), {wall_i8:.1f} s")
+        del tab, tab_cpu, tab_i8
+
+        # 7. the aggregate tests from the fitted model
+        agg = aggregate(model, data["y"], work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    main_shape = grm_checks[1]           # M_FIT x N_SAMPLES, C = 128
-    kernels = [{
-        "name": name,
-        "route": "cuda",
-        "source": "saigegds_tpu_torch/csrc/plane_dot.cu",
-        "replaces": f"saigegds_tpu/ops/pallas_grm.py:{line}",
-        "launches": fit_launches[name],
-        "max_abs_err": max(c[name]["max_abs_err"] for c in grm_checks),
-        "ms": main_shape[name]["ms"],
-        "plain_ms": main_shape[name]["plain_ms"],
-    } for name, line in (("plane_dot_fwd", 86), ("plane_dot_t", 166))]
-    kernels.append({
-        "name": "indicator_dot_2bit",
-        "route": "cuda",
-        "source": "saigegds_tpu_torch/csrc/indicator_dot_2bit.cu",
-        "replaces": "saigegds_tpu/ops/pallas_score.py:102",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "ms": checks[-1]["ms"],
-        "plain_ms": checks[-1]["plain_ms"],
-    })
+    def entry(name, source, line, count, checks, main):
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+        return dict(name=name, route="cuda",
+                    source=f"saigegds_tpu_torch/csrc/{source}.cu",
+                    replaces=line, launches=count,
+                    max_abs_err=max(c["max_abs_err"] for c in checks),
+                    **{k: main[k] for k in keys}, library_ms=None)
+
+    grm_fwd = [c["plane_dot_fwd"] for c in grm_checks]
+    grm_t = [c["plane_dot_t"] for c in grm_checks]
+    agg_launches = agg["launches"]
+    kernels = [
+        entry("plane_dot_fwd", "plane_dot",
+              "saigegds_tpu/ops/pallas_grm.py:86",
+              fit_launches["plane_dot_fwd"], grm_fwd, grm_fwd[1]),
+        entry("plane_dot_t", "plane_dot",
+              "saigegds_tpu/ops/pallas_grm.py:166",
+              fit_launches["plane_dot_t"], grm_t, grm_t[1]),
+        entry("indicator_dot_2bit", "indicator_dot_2bit",
+              "saigegds_tpu/ops/pallas_score.py:171",
+              scan_launches["indicator_dot_2bit"], checks, checks[-1]),
+        entry("indicator_dot", "indicator_dot",
+              "saigegds_tpu/ops/pallas_score.py:225",
+              agg_launches["indicator_dot"], b4_checks, b4_checks[-1]),
+        entry("decode_codes", "decode_codes",
+              "saigegds_tpu/ops/pallas_sparse.py:160",
+              agg_launches["decode_codes"], b5_checks, b5_checks[1]),
+    ]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,18 +4,24 @@ The capabilities of the SAIGEgds R package, rebuilt for one NVIDIA H100:
 PyTorch for the tensor code and hand-written CUDA kernels (``csrc/``) where
 the JAX package had Pallas kernels.  The JAX package ``saigegds_tpu`` stays
 beside it as the reference; this package imports ``torch`` and never
-``jax``.  It fits the binary-trait null GLMM (:func:`fit_null_glmm`) and
-runs the binary-trait association scan (:func:`assoc_spa`); quantitative
-traits and the other tests are still to be ported (ROADMAP Queue A).
+``jax``.  It fits the binary-trait null GLMM (:func:`fit_null_glmm`), runs
+the binary-trait association scan (:func:`assoc_spa`) and the binary-trait
+aggregate tests (:func:`assoc_burden`, :func:`assoc_acat_v`,
+:func:`assoc_acat_o`); quantitative traits and the other tests are still
+to be ported (ROADMAP Queue A).
 
 The reference contract is float64 throughout: every statistic is made as
 a float64 tensor explicitly (the global default dtype is left alone), and
 every public function that places data takes an explicit ``device``.
 """
 
-from .config import NullModelConfig, ScanConfig
+from .config import AggregateConfig, NullModelConfig, ScanConfig
 from .models.nullmodel import NullModel
 from .models.fitnull import fit_null_glmm
 from .assoc.single import assoc_spa, save_assoc
+from .assoc.aggregate import (VariantUnits, assoc_acat_o, assoc_acat_v,
+                              assoc_burden, shard_units, sliding_windows,
+                              units_from_groups)
+from .utils.stats import acat_p, acat_p_maf
 
 __version__ = "0.1.0"

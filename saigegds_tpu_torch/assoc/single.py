@@ -3,7 +3,8 @@
 The counterpart of ``saigegds_tpu/assoc/single.py`` for a binary trait over
 a GDS genotype node.  Variant blocks stream through three threads — GDS
 decode, planar 2-bit pack, upload to the device — into the phase-1 score
-test (``ops/score_packed.py``, kernel B3); variants with
+test (``ops/score_packed.py``, kernel B3; with ``packed_2bit=False`` the
+int8 block ships as it is, through kernel B4); variants with
 ``p_noadj <= spa.pval`` are refined in phase 2 by the saddlepoint
 approximation (``ops/score.spa_refine_binary``).  Output columns and
 semantics match the reference (``R/assoc_single.r:92-334``): id, chr, pos,
@@ -30,6 +31,7 @@ from ..ops._cuda import check_device
 from ..ops.score import ScanParams, spa_refine_binary, stack_stats, \
     unstack_stats
 from ..ops.score_packed import pack_scan_model, score_stats_binary_packed
+from ..ops.sparse_codes import SPARSE_NNZ_FRAC, encode_sparse_rows
 
 SPA_BATCH = 256  # compact SPA refinement batch size
 SPA_FLUSH_BYTES = 1 << 30  # flagged-set host budget before an incremental
@@ -124,8 +126,6 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
         raise _not_ported("a quantitative trait", "item 2")
     if config.dsnode or not config.use_packed or not seq.has_genotype():
         raise _not_ported("a scan of DS/dosage nodes", "item 8")
-    if not config.packed_2bit:
-        raise _not_ported("packed_2bit=False (kernel B4)", "item 3")
     if config.spa_mixed:
         raise NotImplementedError("spa_mixed is deprecated and not ported")
 
@@ -150,6 +150,7 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
     blocks = seq.iter_code_blocks(config.block_size,
                                   variant_mask=variant_mask)
     res = _scan_blocks(scan_model, params, blocks, dev,
+                       packed_2bit=config.packed_2bit,
                        spa_compact=config.spa_compact,
                        instrument=instrument)
     idx = res.pop("__idx__")
@@ -175,10 +176,14 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
 
 
 def _scan_blocks(scan_model, params, block_iter, device: torch.device,
-                 spa_compact: bool = True,
+                 packed_2bit: bool = True, spa_compact: bool = True,
                  instrument=None) -> dict:
     """Two-phase scan core for one binary model: batched score kernel +
     compact SPA (``_scan_blocks_multi`` of the JAX package, P = 1).
+
+    Blocks ship 2-bit planar (kernel B3) or, with ``packed_2bit=False``,
+    as the int8 codes themselves (kernel B4); phase 2 ships the flagged
+    codes 2-bit either way.
 
     ``instrument``: optional dict; per-block wall-times land in lists
     under ``decode_s`` (GDS block read, decode thread), ``pack_s`` (2-bit
@@ -196,7 +201,6 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
         instrument.setdefault("spa_s", 0.0)
         instrument.setdefault("spa_n", 0)
     pm = pack_scan_model(scan_model)
-    on_cuda = device.type == "cuda"
     rows_idx = []
     outs = []
     spa_G, spa_rows = [], []        # flagged variants for phase 2
@@ -204,14 +208,6 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
     spa_out = []                    # (rows, pval, conv, beta, se) per flush
     row0 = 0
     window = deque()
-
-    def _put(a: np.ndarray) -> torch.Tensor:
-        """Host array -> tensor on the scan's device; a CUDA upload goes
-        through a pinned buffer and completes before returning."""
-        t = torch.from_numpy(a)
-        if on_cuda:
-            t = t.pin_memory().to(device)
-        return t
 
     def _decoded(raw):
         it = iter(raw)
@@ -229,7 +225,8 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
         for idx, G in it:
             t0 = _time.perf_counter()
             G = np.asarray(G, np.int8)
-            payload = _pack2_block(G)        # uint8 [n, ceil(N/4)]
+            # uint8 [n, ceil(N/4)], or the int8 block itself
+            payload = _pack2_block(G) if packed_2bit else G
             if instrument is not None:
                 instrument["pack_s"].append(_time.perf_counter() - t0)
             yield idx, G, payload
@@ -237,7 +234,7 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
     def _uploaded(it):
         for idx, G, payload in it:
             t0 = _time.perf_counter()
-            dev_payload = _put(payload)
+            dev_payload = _to_device(payload, device)
             if instrument is not None:
                 instrument["upload_s"].append(_time.perf_counter() - t0)
                 instrument["bytes"].append(payload.nbytes)
@@ -302,7 +299,7 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
                 Gi = Gs[s : s + SPA_BATCH]
                 cap = _spa_cap(Gi) if spa_compact else 0
                 yield rows[s : s + SPA_BATCH], \
-                    _put(_pack2_block(Gi)), cap
+                    _to_device(_pack2_block(Gi), device), cap
 
         for r, Gb, cap in _prefetch_blocks(_spa_payloads()):
             res = spa_refine_binary(scan_model, Gb, cap=cap, packed_n=N)
@@ -353,22 +350,88 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
     }
 
 
+def _to_device(a, device: torch.device):
+    """Host array (or tuple of arrays: the sparse transport) -> tensor(s)
+    on ``device``; a CUDA upload goes through a pinned buffer and
+    completes before returning."""
+    if isinstance(a, tuple):
+        return tuple(_to_device(x, device) for x in a)
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device)
+    return t
+
+
+SPLIT_SAVE_BYTES = 4 << 20   # min upload saving to justify a 2nd payload
+SPLIT_SAVE_FRAC = 0.25       # ... and it must be >= this fraction of the
+#                              block's 2-bit bytes
+MIN_SPLIT = 64               # rows on each side of a split block
+
+
+def _packed_parts(G: np.ndarray):
+    """Split one int8 code block into host transport payloads by the
+    static nonzero-count rule -> ``[(rows, payload), ...]``.
+
+    Rare rows (nonzero fraction < 1/8) ship as the gap-coded
+    ``(entries, row_ptr)`` stream, the rest 2-bit planar.  The block splits
+    into two payloads only when the sparse side's byte saving is
+    substantial (SPLIT_SAVE_BYTES and SPLIT_SAVE_FRAC, MIN_SPLIT rows a
+    side); otherwise the whole block goes sparse when that at least halves
+    its 2-bit bytes, and 2-bit when not.  ``rows`` indexes the block.  The
+    JAX package's link-aware ``TransportPolicy`` is not ported: this is its
+    ``policy=None`` rule.
+    """
+    n, N = G.shape
+    sp_rows, de_rows = np.empty(0, np.int64), np.arange(n)
+    if n * N < (1 << 31):                        # the encoder's bound
+        nnz = (G != 0).sum(axis=1)
+        mask = nnz < (N * SPARSE_NNZ_FRAC)
+        ns = int(mask.sum())
+        row_bytes = N // 4
+        whole_sparse = 2 * int(nnz.sum()) < (n * row_bytes) // 2
+        saving = ns * row_bytes - 2 * int(nnz[mask].sum())
+        if min(ns, n - ns) >= MIN_SPLIT and saving >= max(
+                SPLIT_SAVE_BYTES, SPLIT_SAVE_FRAC * n * row_bytes):
+            sp_rows, de_rows = np.flatnonzero(mask), np.flatnonzero(~mask)
+        elif whole_sparse:
+            sp_rows, de_rows = np.arange(n), np.empty(0, np.int64)
+    parts = []
+    if len(sp_rows):
+        parts.append((sp_rows, encode_sparse_rows(
+            G if len(sp_rows) == n else G[sp_rows])))
+    if len(de_rows):
+        parts.append((de_rows, _pack2_block(
+            G if len(de_rows) == n else G[de_rows])))
+    return parts
+
+
 def _spa_nnz(Gi: np.ndarray) -> np.ndarray:
-    """Per-variant nonzero count after imputation + flip (for bucketing),
-    from int8 codes (3 missing): per-variant 0/2/missing tallies stand in
-    for the f64 matrix (flip iff ac > num; an imputed entry is nonzero iff
-    ac != 0, or ac != 2*num when flipped)."""
-    N = Gi.shape[1]
-    miss = Gi == 3
-    n_miss = miss.sum(axis=1)
-    num = N - n_miss
-    ac = np.where(miss, 0, Gi).sum(axis=1, dtype=np.int64)
-    c0 = (Gi == 0).sum(axis=1)
-    c2 = (Gi == 2).sum(axis=1)
-    flip = ac > num
-    nz_obs = np.where(flip, N - c2, N - c0) - n_miss
-    imp_nz = np.where(flip, ac != 2 * num, ac != 0)
-    return nz_obs + np.where(imp_nz, n_miss, 0)
+    """Per-variant nonzero count after imputation + flip (for bucketing).
+
+    Accepts f64 dosages (NaN missing) or int8 codes (3 missing); the codes
+    branch computes the identical count from per-variant 0/2/missing tallies
+    without materializing the f64 matrix (flip iff ac > num; an imputed
+    entry is nonzero iff ac != 0, or ac != 2*num when flipped)."""
+    if np.issubdtype(Gi.dtype, np.integer):
+        N = Gi.shape[1]
+        miss = Gi == 3
+        n_miss = miss.sum(axis=1)
+        num = N - n_miss
+        ac = np.where(miss, 0, Gi).sum(axis=1, dtype=np.int64)
+        c0 = (Gi == 0).sum(axis=1)
+        c2 = (Gi == 2).sum(axis=1)
+        flip = ac > num
+        nz_obs = np.where(flip, N - c2, N - c0) - n_miss
+        imp_nz = np.where(flip, ac != 2 * num, ac != 0)
+        return nz_obs + np.where(imp_nz, n_miss, 0)
+    isnan = np.isnan(Gi)
+    num = (~isnan).sum(axis=1)
+    ac = np.where(isnan, 0.0, Gi).sum(axis=1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        af = ac / (2 * num)
+        g = np.where(isnan, (ac / np.maximum(num, 1))[:, None], Gi)
+    g = np.where((af > 0.5)[:, None], 2.0 - g, g)
+    return np.nan_to_num(g != 0).sum(axis=1)
 
 
 def _spa_cap(Gi: np.ndarray) -> int:

@@ -1,7 +1,8 @@
-"""ctypes loader for the native decode kernels (saigegds_tpu/native).
+"""ctypes loader for the native host kernels (``native/fastio.cpp``).
 
-Builds ``_fastio.so`` on first use with g++ from the JAX package's source
-``saigegds_tpu/native/fastio.cpp``, read in place, into this package's
+Builds ``_fastio.so`` on first use with g++ from this package's own copy
+``saigegds_tpu_torch/native/fastio.cpp`` (byte-identical to the JAX
+package's ``saigegds_tpu/native/fastio.cpp``) into this package's
 ``_build/`` directory; every entry point has a numpy fallback, so the
 package works without a compiler — the native path just makes large-file
 ingestion several times faster.
@@ -17,8 +18,7 @@ from typing import Optional
 import numpy as np
 
 _PKG_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
-_SRC = os.path.abspath(os.path.join(_PKG_DIR, os.pardir, "saigegds_tpu",
-                                    "native", "fastio.cpp"))
+_SRC = os.path.join(_PKG_DIR, "native", "fastio.cpp")
 _SO = os.path.join(_PKG_DIR, "_build", "_fastio.so")
 
 _lib = None
@@ -27,7 +27,7 @@ _tried = False
 
 def _build() -> None:
     """Compile ``_SO`` when it is missing or older than its source (the
-    flags of saigegds_tpu/native/Makefile); written to a temporary name
+    flags of the JAX package's native/Makefile); written to a temporary name
     and renamed, so a concurrent loader never maps a half-written file."""
     if os.path.exists(_SO) and \
             os.path.getmtime(_SO) >= os.path.getmtime(_SRC):

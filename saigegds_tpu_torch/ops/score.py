@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .special import qnorm
+from .special import pchisq1_sf, qnorm
 from .spa import saddle_prob_batch
 
 _F64 = torch.float64
@@ -104,10 +104,42 @@ def prep_dosage(G: torch.Tensor):
     return g, af, ac, num, mac, maf, miss, flip
 
 
+def _valid_mask(params: ScanParams, num, maf, mac, miss):
+    return (num > 0) & (maf > 0) & (maf >= params.maf) & \
+        (mac >= params.mac) & (miss <= params.missing)
+
+
 def _adjusted_genotype(model: ScanModel, g):
     """coeff = XV @ g; g_tilde = g - XXVX_inv @ coeff."""
     coeff = g @ model.XV.T                     # [B, K]
     return g - coeff @ model.XXVX_inv.T        # [B, N]
+
+
+def score_stats_binary(model: ScanModel, params: ScanParams,
+                       G: torch.Tensor) -> ScoreStats:
+    """Dense phase-1 binary score test on f64 rows G [R, N] (NaN = missing;
+    the aggregate tests' burden rows): chi-square p-values + SPA flags."""
+    g, af, ac, num, mac, maf, miss, flip = prep_dosage(G)
+    valid = _valid_mask(params, num, maf, mac, miss)
+    g_tilde = _adjusted_genotype(model, g)
+    S = torch.sum(model.y_mu[None, :] * g_tilde, dim=1)
+    var = torch.sum(model.mu2[None, :] * g_tilde * g_tilde, dim=1)
+    return binary_stats(model, params, valid, af, mac, num, flip, S, var)
+
+
+def binary_stats(model: ScanModel, params: ScanParams, valid, af, mac, num,
+                 flip, S, var) -> ScoreStats:
+    """Score S and variance var -> chi-square p-values, beta, SE and SPA
+    flags (the tail of every phase-1 route)."""
+    var1 = var * variant_var_ratio(model, mac)
+    pval_noadj = pchisq1_sf(S * S / var1)
+    beta = S / var1
+    beta = torch.where(flip, -beta, beta)
+    se = torch.abs(beta / qnorm(pval_noadj / 2.0))
+    need_spa = valid & torch.isfinite(pval_noadj) & \
+        (pval_noadj <= params.spa_pval)
+    return ScoreStats(valid=valid, af=af, mac=mac, num=num, beta=beta, se=se,
+                      pval=pval_noadj, need_spa=need_spa)
 
 
 def unpack_codes_2bit_f64(packed: torch.Tensor, n_samples: int):

@@ -1,12 +1,12 @@
 """Exact packed-genotype score test: integer contraction, f64 statistics.
 
-The counterpart of ``saigegds_tpu/ops/score_packed.py`` on its 2-bit route.
-Phase 1 is reformulated algebraically so the packed genotype codes are the
-only [B, N]-sized operand: with per-variant missing mask ``m``,
-zero-filled dosages ``g0`` and hom-ALT indicator ``g2``, mean imputation and
-allele flip are affine maps ``g = s*(g0 + mean*m) + t`` and the covariate
-adjustment ``L(v) = v - XXVX_inv (XV v)`` is linear, so (reference
-``single_test_bin`` src/saige_main.cpp:279-407):
+The counterpart of ``saigegds_tpu/ops/score_packed.py``.  Phase 1 is
+reformulated algebraically so the genotype codes are the only [B, N]-sized
+operand: with per-variant missing mask ``m``, zero-filled dosages ``g0``
+and hom-ALT indicator ``g2``, mean imputation and allele flip are affine
+maps ``g = s*(g0 + mean*m) + t`` and the covariate adjustment
+``L(v) = v - XXVX_inv (XV v)`` is linear, so (reference ``single_test_bin``
+src/saige_main.cpp:279-407):
 
     S   = r' L(g)                    -> contractions  r'g0, r'm, XV g0, XV m
     var = sum W L(g)^2               -> adds  W'g0, W'm, W'g2, (X'W) g0,
@@ -14,9 +14,18 @@ adjustment ``L(v) = v - XXVX_inv (XV v)`` is linear, so (reference
                                         matrix  X'WX
 
 i.e. phase 1 for a whole block is ONE exact integer contraction
-``[G0; M; G2] @ V'`` (kernel B3, ``ops/score_kernel.py``) where ``V`` stacks
-the 2K+3 model vectors (ones, r, W, XV rows, (W XXVX_inv) rows),
-decomposed into signed-7-bit slices (``ops/packed_grm._slice_i8``).
+``[G0; M; G2] @ V'`` where ``V`` stacks the 2K+3 model vectors (ones, r,
+W, XV rows, (W XXVX_inv) rows), decomposed into signed-7-bit slices
+(``ops/packed_grm._slice_i8``).  A block arrives by one of three routes,
+told apart by its type, and all three give the same exact integers:
+
+- planar 2-bit uint8 [B, N4] -> kernel B3 (``indicator_dot_2bit``);
+- int8 codes [B, N] -> kernel B4 (``indicator_dot``);
+- the gap-coded sparse stream ``(entries, row_ptr)`` -> kernel B5
+  (``sparse_codes.decode_codes``) to int8 codes, then B4.
+
+The aggregate tests' burden collapse (:func:`burden_score_packed`) builds
+its weighted rows on the device from the same payloads.
 """
 
 from __future__ import annotations
@@ -28,11 +37,17 @@ import torch
 import torch.nn.functional as F
 
 from .packed_grm import N_SLICES, _slice_i8
-from .score import ScanModel, ScanParams, ScoreStats, variant_var_ratio
-from .score_kernel import indicator_dot_2bit
-from .special import pchisq1_sf, qnorm
+from .score import ScanModel, ScanParams, ScoreStats, _valid_mask, \
+    binary_stats, score_stats_binary
+from .score_kernel import indicator_dot, indicator_dot_2bit
+from .sparse_codes import decode_codes
 
 _F64 = torch.float64
+
+# burden-collapse batching target (test-vector source rows per batch), and
+# the sample chunk that bounds the transient f64 indicators of the collapse
+BURDEN_S_CAP = 2048
+_BURDEN_N_CHUNK = 32768
 
 
 class PackedScanModel(NamedTuple):
@@ -56,6 +71,13 @@ class PackedScanModel(NamedTuple):
     wts: torch.Tensor      # [2K+3, S] f64 slice combine weights
     # SPA phase 2 still needs the dense model
     dense: ScanModel
+
+    @property
+    def vs(self) -> torch.Tensor:
+        """[N, Cpad] int8 slices in natural sample order (kernel B4's
+        operand): a view of ``vs4``, whose plane p holds samples p*N4 ..
+        p*N4+N4-1, so no second copy exists."""
+        return self.vs4.view(-1, self.vs4.shape[2])[:self.V.shape[1]]
 
 
 def pack_scan_model(model: ScanModel) -> PackedScanModel:
@@ -108,21 +130,34 @@ def pack_scan_model(model: ScanModel) -> PackedScanModel:
     )
 
 
-def _packed_phase1(pm: PackedScanModel, params: ScanParams,
-                   packed: torch.Tensor):
+def _contract(pm: PackedScanModel, payload) -> torch.Tensor:
+    """The block's three indicator contractions, f64 [B, 3, Cpad], by the
+    payload's route (2-bit -> B3, int8 -> B4, sparse -> B5 then B4)."""
+    if isinstance(payload, tuple):
+        entries, row_ptr = payload
+        payload = decode_codes(entries, row_ptr, row_ptr.shape[0] - 1,
+                               pm.V.shape[1])
+    if payload.dtype == torch.int8:
+        return indicator_dot(payload, pm.vs)
+    return indicator_dot_2bit(payload, pm.vs4)
+
+
+def _packed_phase1(pm: PackedScanModel, params: ScanParams, payload):
     """Contraction + per-variant moment algebra.
 
-    ``packed`` is the planar 2-bit block, uint8 [B, N4] (``pack_codes_2bit``
-    with missing retained as 3; byte j bit-pair p = sample p*N4+j).  Padded
-    samples beyond N contribute nothing because their ``vs4`` rows are
-    zero; padded variant rows (all missing) come out invalid.
+    ``payload`` is one block on one of three routes: the planar 2-bit
+    block, uint8 [B, N4] (``pack_codes_2bit`` with missing retained as 3;
+    byte j bit-pair p = sample p*N4+j); int8 codes [B, N] (3 = missing);
+    or the gap-coded ``(entries, row_ptr)`` stream of
+    ``ops/sparse_codes``.  Padded samples beyond N contribute nothing
+    because their ``vs4`` rows are zero; all-missing rows come out invalid.
     """
-    B = packed.shape[0]
     N = pm.V.shape[1]               # true sample count
     K = pm.n_cov
     R = pm.V.shape[0]
 
-    Y3 = indicator_dot_2bit(packed, pm.vs4)              # f64 [B, 3, Cpad]
+    Y3 = _contract(pm, payload)                          # f64 [B, 3, Cpad]
+    B = Y3.shape[0]
     Y3 = Y3[:, :, :R * N_SLICES].reshape(B, 3, R, N_SLICES)
     Y3 = torch.einsum("bgrs,rs->bgr", Y3, pm.wts)
     Y0, Ym, Y2 = Y3[:, 0], Y3[:, 1], Y3[:, 2]
@@ -143,9 +178,7 @@ def _packed_phase1(pm: PackedScanModel, params: ScanParams,
     flip = af > 0.5
     mac = torch.minimum(ac, 2.0 * num - ac)
     maf = torch.minimum(af, 1.0 - af)
-    miss_rate = n_miss / N
-    valid = (num > 0) & (maf > 0) & (maf >= params.maf) & \
-        (mac >= params.mac) & (miss_rate <= params.missing)
+    valid = _valid_mask(params, num, maf, mac, n_miss / N)
 
     # affine map g = s*(g0 + mean*m) + t;  unflipped (1, 0), flipped (-1, 2)
     s = torch.where(flip, -1.0, 1.0).to(_F64)
@@ -171,18 +204,62 @@ def _packed_phase1(pm: PackedScanModel, params: ScanParams,
 
 
 def score_stats_binary_packed(pm: PackedScanModel, params: ScanParams,
-                              packed: torch.Tensor) -> ScoreStats:
-    """Phase-1 binary score test from a planar 2-bit block uint8 [B, N4]
-    (3 = missing): chi-square p-values + SPA flags, float64."""
-    m = _packed_phase1(pm, params, packed)
-    S, var, flip = m["S"], m["var"], m["flip"]
-    var1 = var * variant_var_ratio(pm.dense, m["mac"])
-    pval_noadj = pchisq1_sf(S * S / var1)
-    beta = S / var1
-    beta = torch.where(flip, -beta, beta)
-    se = torch.abs(beta / qnorm(pval_noadj / 2.0))
-    need_spa = m["valid"] & torch.isfinite(pval_noadj) & \
-        (pval_noadj <= params.spa_pval)
-    return ScoreStats(valid=m["valid"], af=m["af"], mac=m["mac"],
-                      num=m["num"], beta=beta, se=se,
-                      pval=pval_noadj, need_spa=need_spa)
+                              payload) -> ScoreStats:
+    """Phase-1 binary score test from one block on any of the three
+    routes (see :func:`_packed_phase1`): chi-square p-values + SPA flags,
+    float64."""
+    m = _packed_phase1(pm, params, payload)
+    return binary_stats(pm.dense, params, m["valid"], m["af"], m["mac"],
+                        m["num"], m["flip"], m["S"], m["var"])
+
+
+# ---------------------------------------------------------------------------
+# Device-side burden collapse: unit codes ship once (sparse or 2-bit), the
+# weighted burden rows are built ON DEVICE and scored in the same call —
+# the host never materializes or uploads [rows, N] f64.
+
+
+def _burden_rows(codes: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                 C: torch.Tensor) -> torch.Tensor:
+    """Weighted burden rows from int8 codes.
+
+    codes: int8 [S, N] (3 = missing); A, Bm: f64 [R, S] per-row SNP
+    coefficients (A on the zero-filled dosage, Bm on the missing
+    indicator); C: f64 [R] constants.  Row r = A[r] @ G0 + Bm[r] @ M +
+    C[r] — the affine form of the reference's per-SNP mean-impute +
+    minor-flip + weight collapse (``ds_mat_burden``,
+    src/saige_main.cpp:526-610).
+
+    The JAX package slices A and Bm into signed 7-bit integers for exact
+    bf16 products on the TPU, whose f64 is emulated; the H100 has native
+    f64, so this is one f64 product per sample chunk.  Each row is then
+    within a few ulps of the exact affine value, as the slice form is.
+    """
+    S, N = codes.shape
+    rows = torch.empty(A.shape[0], N, dtype=_F64, device=codes.device)
+    for j0 in range(0, N, _BURDEN_N_CHUNK):
+        c = codes[:, j0:j0 + _BURDEN_N_CHUNK]
+        g0 = torch.where(c == 3, 0, c).to(_F64)
+        rows[:, j0:j0 + _BURDEN_N_CHUNK] = A @ g0 + Bm @ (c == 3).to(_F64)
+    return rows + C[:, None]
+
+
+def burden_score_packed(model: ScanModel, params: ScanParams, payload,
+                        A: torch.Tensor, Bm: torch.Tensor,
+                        C: torch.Tensor) -> ScoreStats:
+    """Collapse + score burden rows on the device (binary trait).
+
+    ``payload`` is the unit batch's codes: the 2-bit planar uint8
+    [S, ceil(N/4)] or the gap-coded ``(entries, row_ptr)`` transport
+    (decoded by kernel B5).  The resulting [R, N] f64 burden rows feed the
+    dense score test (the reference re-runs ``single_test_bin`` on each
+    collapsed vector, src/saige_main.cpp:872-897)."""
+    N = model.XV.shape[1]
+    if isinstance(payload, tuple):
+        entries, row_ptr = payload
+        codes = decode_codes(entries, row_ptr, row_ptr.shape[0] - 1, N)
+    else:
+        pi = payload.to(torch.int32)
+        codes = torch.cat([(pi >> (2 * p)) & 3 for p in range(4)],
+                          dim=1)[:, :N].to(torch.int8)
+    return score_stats_binary(model, params, _burden_rows(codes, A, Bm, C))

@@ -1,7 +1,8 @@
 """Guards of the PyTorch port's boundary with the JAX package.
 
-* The port imports and scans with ``jax`` made unimportable, fits with
-  ``jax`` and ``pandas`` made unimportable, and loads no
+* The port imports and scans with ``jax`` made unimportable, fits and
+  runs the aggregate tests with ``jax`` and ``pandas`` made unimportable,
+  and loads no
   ``saigegds_tpu`` module on the way (``saigegds_tpu/__init__.py`` imports
   jax, so the port copies the framework-free host layers instead).
 * Those copies stay byte-identical to their originals, so a fix to one is
@@ -18,7 +19,7 @@ import pytest
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 PORT = os.path.join(ROOT, "saigegds_tpu_torch")
 VERBATIM = ["config.py", "io/gds.py", "io/seqarray.py", "io/gds_write.py",
-            "models/glm.py", "utils/rrandom.py"]
+            "models/glm.py", "utils/rrandom.py", "native/fastio.cpp"]
 
 _SCAN_WITHOUT_JAX = r"""
 import sys
@@ -85,6 +86,49 @@ print("OK")
 """
 
 
+_AGGREGATE_WITHOUT_JAX_OR_PANDAS = r"""
+import sys
+sys.modules["jax"] = None          # any import of jax or pandas now raises
+sys.modules["pandas"] = None
+import numpy as np
+import saigegds_tpu_torch as sg
+from saigegds_tpu_torch.io import native
+from saigegds_tpu_torch.io.gds_write import write_seqarray_gds
+from saigegds_tpu_torch.io.seqarray import SeqData
+from saigegds_tpu_torch.models.glm import obj_nok_binary
+
+rng = np.random.default_rng(2)
+N, M = 301, 90
+codes = rng.binomial(2, rng.uniform(0.002, 0.05, (M, 1)), size=(M, N))
+codes = codes.astype(np.int8)
+codes[rng.random((M, N)) < 0.01] = 3
+path = sys.argv[1]
+write_seqarray_gds(path, codes, position=np.arange(1, M + 1) * 10)
+X = np.column_stack([np.ones(N), rng.normal(size=N)])
+y = (rng.random(N) < 0.3).astype(np.float64)
+nok = obj_nok_binary(X, y)
+model = sg.NullModel(
+    trait_type="binary", coefficients=np.zeros(2), coef_names=["a", "b"],
+    tau=np.array([1.0, 0.0]), linear_predictors=np.zeros(N),
+    fitted_values=nok.mu, residuals=nok.res, cov=np.eye(2), converged=True,
+    y=nok.y, mu=nok.mu, res=nok.res, V=nok.V, X1=nok.X1, XV=nok.XV,
+    XXVX_inv=nok.XXVX_inv, var_ratio={"ratio": [1.0]},
+    sample_id=np.arange(1, N + 1, dtype=np.int32))
+units = sg.sliding_windows(SeqData(path), win_size=200, win_shift=100)
+inst = {}
+tab = sg.assoc_acat_o(path, model, units, sg.AggregateConfig(),
+                      instrument=inst, device="cpu")
+p = tab["pval"][np.isfinite(tab["pval"])]
+assert len(tab["pval"]) == len(units) and len(p) and ((p >= 0) & (p <= 1)).all()
+assert inst["payloads"]["burden_sparse"] >= 1 and native.available()
+bad = [m for m in sys.modules
+       if m == "saigegds_tpu" or m.startswith("saigegds_tpu.")
+       or (m.startswith(("jax", "pandas")) and sys.modules[m] is not None)]
+assert not bad, bad
+print("OK")
+"""
+
+
 def _run(code: str, tmp_path):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run(
@@ -115,6 +159,10 @@ def test_sources_name_no_jax():
             if pat.search(fh.read()):
                 hits.append(os.path.relpath(path, ROOT))
     assert len(paths) > 15 and not hits
+
+
+def test_aggregate_runs_without_jax_or_pandas(tmp_path):
+    _run(_AGGREGATE_WITHOUT_JAX_OR_PANDAS, tmp_path)
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

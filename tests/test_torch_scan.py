@@ -178,8 +178,25 @@ def test_saved_text_reads_back(data, scans, tmp_path, ext):
                                   got["converged"])
 
 
-@pytest.mark.parametrize("case", ["quantitative", "int8_route",
-                                  "sample_subset", "rds_model", "dosage"])
+def test_int8_route_matches_default(data, scans):
+    """``packed_2bit=False`` ships each int8 block as it is (kernel B4 on
+    the card): the table is exactly the default 2-bit route's, and both
+    match the JAX package's."""
+    _, gds, _, _ = data
+    want, jm = scans
+    model = NullModel.from_arrays(vars(jm))
+    got = assoc_spa(gds, model, ScanConfig(block_size=BLOCK,
+                                           packed_2bit=False), device="cpu")
+    default = assoc_spa(gds, model, ScanConfig(block_size=BLOCK),
+                        device="cpu")
+    assert list(got) == list(default)
+    for c in got:
+        np.testing.assert_array_equal(got[c], default[c], err_msg=c)
+    _assert_tables_match(got, want)
+
+
+@pytest.mark.parametrize("case", ["quantitative", "sample_subset",
+                                  "rds_model", "dosage"])
 def test_unported_options_raise(data, case, tmp_path):
     tmp, gds, X, y = data
     jm = jax_null_model(X, y, var_ratio_table("pooled"))
@@ -187,8 +204,6 @@ def test_unported_options_raise(data, case, tmp_path):
     config = ScanConfig(block_size=BLOCK)
     if case == "quantitative":
         model.trait_type = "quantitative"
-    elif case == "int8_route":
-        config = ScanConfig(block_size=BLOCK, packed_2bit=False)
     elif case == "sample_subset":
         model.sample_id = model.sample_id[::-1].copy()
     elif case == "rds_model":

@@ -99,7 +99,7 @@ def test_plain_matches_xla2_route(setup, monkeypatch):
 def test_launch_count_untouched_by_plain_version(setup):
     jax_pack = _jax()[4]
     codes, _, tpm = setup
-    before = score_kernel.LAUNCHES
+    before = dict(score_kernel.LAUNCHES)
     score_kernel.indicator_dot_2bit(torch.from_numpy(jax_pack(codes[:5])),
                                     tpm.vs4)
     assert score_kernel.LAUNCHES == before
@@ -164,9 +164,9 @@ def test_kernel_matches_plain_on_card(shape):
     vs4 = rng.integers(-64, 65, size=(4, n4, 128), dtype=np.int8)
     vs4.reshape(-1, 128)[N:] = 0                  # padded samples
     vs4 = torch.from_numpy(vs4).cuda()
-    before = score_kernel.LAUNCHES
+    before = score_kernel.LAUNCHES["indicator_dot_2bit"]
     got = score_kernel.indicator_dot_2bit(packed, vs4)
     torch.cuda.synchronize()
-    assert score_kernel.LAUNCHES == before + 1
+    assert score_kernel.LAUNCHES["indicator_dot_2bit"] == before + 1
     want = score_kernel.indicator_dot_2bit_plain(packed, vs4)
     assert torch.equal(got, want)
