@@ -14,20 +14,25 @@ and prints no result line):
    at a ragged shape and at its main-path shapes: B3
    (``indicator_dot_2bit``) at the scan's block (B = 1024 variants,
    N = 430,000 samples, C = 128); B1 (``plane_dot_fwd``) and B2
-   (``plane_dot_t``) at the fit's (M = 16,384 GRM variants, N = 430,000,
-   C = 128 and 256); B4 (``indicator_dot``, int8 codes) at the aggregate
+   (``plane_dot_t``) at two ragged shapes (37 and 129 variants x 1,031
+   samples, C = 128 and 256) and at the fit's (M = 16,384 GRM variants,
+   N = 430,000, C = 128 and 256), each over a store of the GRM store's
+   width; B4 (``indicator_dot``, int8 codes) at the aggregate
    tests' single-variant batch (B = 256, N = 430,000, C = 128); B5
    (``decode_codes``) on a ragged stream full of escapes and empty rows and
    on rare-variant streams of 256 and 2,048 rows x N = 430,000.  Every time
    is the median of several runs timed with CUDA events, printed beside the
    plain version's and the bound (the larger of the bytes the function must
-   move at 3.35 TB/s and its int8 operations at 1,979 TOP/s);
+   move at 3.35 TB/s and its int8 operations at 1,979 TOP/s), with the
+   achieved int8 operations per second and the share of the bound;
 4. the null-GLMM fit at full width: a synthetic GDS of 16,384 GRM variants
    x 430,000 samples (allele frequencies 0.05-0.5, 0.5% missing) and a
    polygenic binary phenotype (true tau_G ~ 0.6, 3 covariates), then
    ``fit_null_glmm(..., device="cuda")`` through the streamed ingest; it
    must converge with tau_G > 0 and finite variance ratios, and B1 and B2
-   must each launch once per GRM product;
+   must each launch once per GRM product; then one GRM product at R = 30
+   columns over a random store of the fit's size and missing rate, timed
+   by CUDA events and profiled by kernel (``torch.profiler``);
 5. the fit held against the CPU: one GRM product over the first 2,048 GRM
    variants at full N (31 columns) on the card and on the CPU, within
    1e-12 relative; a small fit (2,000 samples x 1,000 variants) on both,
@@ -81,9 +86,11 @@ RTOL = 1e-10            # card vs CPU table agreement
 KERNEL_SHAPES = [(37, 1031), (BLOCK, N_SAMPLES)]
 M_FIT = 16_384          # GRM variants of the fit (bench.py M_FITMIX)
 FIT_SMALL = (2000, 1000)  # samples x variants of the card-vs-CPU fit
-GRM_SHAPES = [(37, 1031, 128), (M_FIT, N_SAMPLES, 128),
+GRM_SHAPES = [(37, 1031, 128), (129, 1031, 256), (M_FIT, N_SAMPLES, 128),
               (M_FIT, N_SAMPLES, 256)]
+GRM_MAIN = GRM_SHAPES.index((M_FIT, N_SAMPLES, 128))
 MV_ROWS, MV_COLS = 2048, 31  # the card-vs-CPU GRM product
+PROFILE_COLS = 30       # columns of the profiled full-width GRM product
 RTOL_MV = 1e-12         # card vs CPU GRM product (f64 atomics reorder)
 RTOL_FIT = 1e-8         # card vs CPU small fit
 FORMULA = "y ~ x1 + x2 + x3"
@@ -147,9 +154,9 @@ def expect_launches(what: str, want: dict):
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take: the larger of the bytes moved
     at the device memory rate and the int8 operations at the tensor-core
-    peak (H100 SXM at 700 W)."""
+    peak (H100 SXM at 700 W); ``ops`` is kept for the achieved rate."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT8_OPS_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
+    return dict(bound_ms=max(t_bytes, t_ops), ops=ops,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -175,7 +182,8 @@ def compare_and_time(label: str, kern, plain, runs: int, least: dict,
     log(f"{label}: bit-equal to the plain version; kernel {ms:.3f} ms "
         f"(runs {k1:.3f}, {k2:.3f}), plain {plain_ms:.3f} ms (runs "
         f"{p1:.3f}, {p2:.3f}), bound {least['bound_ms']:.4f} ms "
-        f"({least['bound_by']})")
+        f"({least['bound_by']}); {least['ops'] / ms * 1e3:.3e} int8 op/s, "
+        f"{least['bound_ms'] / ms:.1%} of the bound")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least)
 
 
@@ -198,18 +206,27 @@ def check_kernel(B: int, N: int, device, gen) -> dict:
               2 * 3 * B * 4 * n4 * 128))
 
 
+def random_store(M: int, N: int, device, gen):
+    """uint8 [M, store_width(N)]: random codes 0..2 (code-3 bit pairs
+    cleared, as in the fit's store)."""
+    import torch
+    from saigegds_tpu_torch.ops.packed_grm import store_width
+
+    x = torch.randint(0, 256, (M, store_width(N)), dtype=torch.uint8,
+                      device=device, generator=gen)
+    m3 = x & (x >> 1) & 0x55
+    return x & ~(m3 | (m3 << 1))
+
+
 def check_grm(M: int, N: int, C: int, device, gen) -> dict:
     """B1 and B2 on the card vs their plain versions on the same tensors:
-    a random store of codes 0..2 (code-3 bit pairs cleared, as in the
-    fit's store), slices in [-64, 64] with zero rows at padded samples."""
+    a random store of the GRM store's width, slices in [-64, 64] with zero
+    rows at padded samples."""
     import torch
     from saigegds_tpu_torch.ops import grm_kernel
 
-    n4 = -(-N // 4)
-    x = torch.randint(0, 256, (M, n4), dtype=torch.uint8, device=device,
-                      generator=gen)
-    m3 = x & (x >> 1) & 0x55
-    packed = x & ~(m3 | (m3 << 1))
+    packed = random_store(M, N, device, gen)
+    n4 = packed.shape[1]
     d4 = torch.randint(-64, 65, (4, n4, C), dtype=torch.int8, device=device,
                        generator=gen)
     d4.view(4 * n4, C)[N:] = 0
@@ -398,6 +415,53 @@ def make_fit_data(n_samples: int, n_variants: int, device, seed: int):
             "y": y}
     data.update({f"x{i}": X[:, i] for i in range(1, N_COV + 1)})
     return codes, data
+
+
+def profile_product(device, gen) -> dict:
+    """One GRM product at PROFILE_COLS columns over a random store of the
+    fit's size (M_FIT x N_SAMPLES, MISS_RATE of the pairs missing, allele
+    frequencies 0.05-0.5): its median time by CUDA events, then one product
+    under ``torch.profiler`` with the device time of each kernel, in ms."""
+    import torch
+    from saigegds_tpu_torch.ops.packed_grm import Packed2GRM
+
+    M, N = M_FIT, N_SAMPLES
+    af = torch.rand(M, dtype=torch.float64, device=device,
+                    generator=gen) * 0.45 + 0.05
+    nnz = int(np.random.default_rng(SEED).binomial(M * N, MISS_RATE))
+    grm = Packed2GRM(
+        random_store(M, N, device, gen), af,
+        1.0 / torch.sqrt(2.0 * af * (1.0 - af)),
+        torch.ones(N, dtype=torch.float64, device=device),
+        torch.randint(0, M, (nnz,), device=device, generator=gen),
+        torch.randint(0, N, (nnz,), device=device, generator=gen), N)
+    b = torch.randn(N, PROFILE_COLS, dtype=torch.float64, device=device,
+                    generator=gen)
+    grm.matvec(b)
+    ms = median_ms(lambda: grm.matvec(b), 3)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        grm.matvec(b)
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0.0)
+        if t and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + t / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"GRM product at R = {PROFILE_COLS} over a random store of {M} "
+        f"variants x {N} samples, {nnz} missing pairs: {ms:.3f} ms (median "
+        f"of 3, CUDA events)")
+    if top:
+        log(f"  device time by kernel (ms, torch.profiler, one product; "
+            f"sum {sum(by_name.values()):.3f}):")
+        for name, t in top:
+            log(f"    {t:9.3f}  {name[:110]}")
+    else:
+        log("  device time by kernel: not measured (the profiler recorded "
+            "no device events)")
+    return dict(ms=ms, kernels=dict(top))
 
 
 def fit(gds: str, data: dict, device: str):
@@ -714,6 +778,8 @@ def main() -> int:
             f"markers, mean ratio {model.mean_var_ratio:.4f}); peak device "
             f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+        profile_product(device, gen)
+
         # 5. the fit held against the CPU
         worst_mv = check_matvec(codes[:MV_ROWS], device)
         del codes
@@ -801,10 +867,10 @@ def main() -> int:
     kernels = [
         entry("plane_dot_fwd", "plane_dot",
               "saigegds_tpu/ops/pallas_grm.py:86",
-              fit_launches["plane_dot_fwd"], grm_fwd, grm_fwd[1]),
+              fit_launches["plane_dot_fwd"], grm_fwd, grm_fwd[GRM_MAIN]),
         entry("plane_dot_t", "plane_dot",
               "saigegds_tpu/ops/pallas_grm.py:166",
-              fit_launches["plane_dot_t"], grm_t, grm_t[1]),
+              fit_launches["plane_dot_t"], grm_t, grm_t[GRM_MAIN]),
         entry("indicator_dot_2bit", "indicator_dot_2bit",
               "saigegds_tpu/ops/pallas_score.py:171",
               scan_launches["indicator_dot_2bit"], checks, checks[-1]),

@@ -6,8 +6,11 @@ the counterparts of ``saigegds_tpu/ops/pallas_grm.py::plane_dot_fwd`` and
 kernel in ``csrc/plane_dot.cu`` (which replaces the Pallas bodies
 ``_fwd_kernel`` and ``_t_kernel``); on a CPU tensor each runs its plain
 PyTorch version.  Both return the same exact integers as f64: the kernels
-accumulate in int32 (exact for N, M < 2^24), the plain versions in f64
-(exact below 2^53).
+contract on the int8 tensor cores (``mma.sync`` m16n8k32, s8 x s8 with
+s32 accumulators; exact for N, M < 2^24), the plain versions in f64
+(exact below 2^53).  The kernels load four byte columns of a row at once,
+so on a CUDA tensor N4 must be a multiple of 4 (the GRM store's width,
+``packed_grm.store_width``); the plain versions take any N4.
 """
 
 from __future__ import annotations
@@ -116,6 +119,11 @@ def _launch(name: str, packed: torch.Tensor, rhs: torch.Tensor,
         raise ValueError(f"{name} needs contiguous operands")
     if rhs.data_ptr() % 4:
         raise ValueError(f"the slices of {name} must be 4-byte aligned")
+    if packed.shape[1] % 4 or packed.data_ptr() % 4:
+        raise ValueError(f"{name} needs packed rows that start 4-byte "
+                         f"aligned, got N4={packed.shape[1]} (the GRM "
+                         "store pads N4 to a multiple of 4: "
+                         "packed_grm.store_width)")
     fn = _kernel_fn(name)
     M, N4 = packed.shape
     out = torch.empty(out_shape, dtype=torch.int32, device=packed.device)

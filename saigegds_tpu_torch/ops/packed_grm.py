@@ -10,7 +10,10 @@ contraction, and the slices recombine in f64 to ~2^-53 relative.
 The GRM is ``G_std' G_std / M`` with ``s(c) = (c - 2 af) * inv`` for codes
 ``c`` in {0, 1, 2} and ``s(missing) = 0``.  The store keeps the codes 2-bit
 planar-packed with missing zeroed (0.25 B/genotype, the reference's
-footprint) as one contiguous ``[M, N4]`` uint8 tensor, so
+footprint) as one contiguous ``[M, N4]`` uint8 tensor, N4 =
+:func:`store_width` (ceil(N/4) rounded up to a multiple of 4, so that every
+row starts 4-byte aligned for kernels B1 and B2; the extra byte columns
+are padding samples of code 0), so
 
     G_std @ v = diag(inv) @ (Cm @ v - 2 af * (mask @ v))
 
@@ -63,6 +66,14 @@ def pack_codes_2bit(codes: np.ndarray) -> np.ndarray:
     c[:, :N] = codes
     pl = c.reshape(M, 4, N4)
     return pl[:, 0] | (pl[:, 1] << 2) | (pl[:, 2] << 4) | (pl[:, 3] << 6)
+
+
+def store_width(n_samples: int) -> int:
+    """Byte columns N4 of the GRM store for ``n_samples``: ceil(N/4)
+    rounded up to a multiple of 4 (at most 3 more than the scan's
+    ``pack_codes_2bit``), so that every packed row starts 4-byte aligned
+    and kernels B1 and B2 load four byte columns of a row as one word."""
+    return 4 * -(-int(n_samples) // 16)
 
 
 def unpack_codes_2bit(packed: np.ndarray, n_samples: int) -> np.ndarray:
@@ -118,8 +129,13 @@ def _variant_moments(codes: np.ndarray):
 
 
 def _pack2_zeroed(codes: np.ndarray) -> np.ndarray:
-    """Planar 2-bit pack with missing zeroed (native kernel or numpy)."""
+    """The GRM store's rows of int8 codes [M, N]: planar 2-bit pack with
+    missing zeroed (native kernel or numpy), [M, store_width(N)]; the
+    padding samples are code 0."""
     from ..io import native
+    N = codes.shape[1]
+    if 4 * store_width(N) != N:
+        codes = np.pad(codes, ((0, 0), (0, 4 * store_width(N) - N)))
     out = native.pack2_zeroed(codes)
     if out is not None:
         return out
@@ -162,10 +178,14 @@ class Packed2GRM:
                     miss_pad=None, *, n_samples: int,
                     device) -> "Packed2GRM":
         """Carry an operator across as numpy arrays: ``packed`` [M, N4]
-        (the JAX store's leaves and tiles concatenated back), ``af``,
-        ``inv``, ``diag`` and the missing-pair lists.  ``miss_pad`` (the
-        JAX package's 1.0/0.0 marks of its padded lists) drops the
-        padding entries."""
+        (the JAX store's leaves and tiles concatenated back; a store of
+        another width than :func:`store_width` is packed again to it),
+        ``af``, ``inv``, ``diag`` and the missing-pair lists.
+        ``miss_pad`` (the JAX package's 1.0/0.0 marks of its padded lists)
+        drops the padding entries."""
+        packed = np.asarray(packed, np.uint8)
+        if packed.shape[1] != store_width(n_samples):
+            packed = _pack2_zeroed(unpack_codes_2bit(packed, n_samples))
         mv = np.asarray(miss_var, np.int64)
         ms = np.asarray(miss_samp, np.int64)
         if miss_pad is not None:
@@ -173,7 +193,7 @@ class Packed2GRM:
             mv, ms = mv[real], ms[real]
         f64 = lambda a: torch.tensor(np.asarray(a, np.float64),
                                      device=device)
-        return cls(torch.tensor(np.asarray(packed, np.uint8), device=device),
+        return cls(torch.tensor(packed, device=device),
                    f64(af), f64(inv), f64(diag),
                    torch.tensor(mv, device=device),
                    torch.tensor(ms, device=device), n_samples)
@@ -201,8 +221,8 @@ def build_packed2_grm_streamed(block_iter, n_samples: int, n_variants: int,
     to a few ulps (as in the JAX package)."""
     af_parts, inv_parts, miss_v, miss_s = [], [], [], []
     diag = np.zeros(n_samples, np.float64)
-    store = torch.empty((n_variants, -(-n_samples // 4)), dtype=torch.uint8,
-                        device=device)
+    store = torch.empty((n_variants, store_width(n_samples)),
+                        dtype=torch.uint8, device=device)
     row0 = 0
     for _idx, codes in block_iter:
         codes = np.ascontiguousarray(codes, dtype=np.int8)
@@ -252,8 +272,8 @@ def packed2_grm_matvec(packed, af, inv, miss_var, miss_samp,
     """GRM @ b from the 2-bit store; b [N] or [N, R] f64.
 
     The algebra of the JAX package's ``_packed2_grm_matvec`` with
-    ``impl="pallas"``: kernel B1 takes the slices of ``b`` (padded to 4 N4
-    samples and to a multiple of 128 columns), kernel B2 the slices of the
+    ``impl="pallas"`` on a store of any width N4 >= ceil(N/4): kernel B1
+    takes the slices of ``b`` (padded to 4 N4 samples and to a multiple of 128 columns), kernel B2 the slices of the
     weighted per-variant vectors; both results are exact integers,
     recombined with the slice weights in f64.  The missing-pair
     corrections are ``index_add_`` in f64 (on a CUDA device through f64

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from saigegds_tpu_torch.ops import grm_kernel
+from saigegds_tpu_torch.ops.packed_grm import store_width
 
 M_VARIANTS, N_SAMPLES = 300, 1111       # off every tile size; N % 4 != 0
 
@@ -29,11 +30,12 @@ def _jax():
     return jnp, packed_grm, pallas_grm
 
 
-def _operands(M: int, N: int, C: int, seed: int):
+def _operands(M: int, N: int, C: int, seed: int, n4: int = 0):
     """uint8 packed [M, N4], int8 d4 [4, N4, C] (zero rows at padded
-    samples) and int8 dm [M, C], as numpy arrays."""
+    samples) and int8 dm [M, C], as numpy arrays; N4 = ceil(N/4) unless
+    given."""
     rng = np.random.default_rng(seed)
-    n4 = -(-N // 4)
+    n4 = n4 or -(-N // 4)
     packed = rng.integers(0, 256, size=(M, n4), dtype=np.uint8)
     d4 = rng.integers(-64, 65, size=(4, n4, C), dtype=np.int8)
     d4.reshape(4 * n4, C)[N:] = 0
@@ -150,16 +152,158 @@ def test_wrappers_reject(kernel, bad):
         fn(packed, rhs)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(37, 1031, 128), (300, 1111, 256),
-                                   (4100, 65537, 128)])
-def test_kernels_match_plain_on_card(shape):
-    """The hand-written CUDA kernels against their plain versions, on the
-    card (ragged shapes: M and N off every tile size)."""
+# The kernels' operand words and fragment map, in numpy.  On the card B1 and
+# B2 contract on the int8 tensor cores with mma.sync m16n8k32 (s8 x s8 ->
+# s32); a 32-bit word holds four consecutive k as s8 bytes, lowest first.
+_LANE = np.arange(32)
+_G, _T = _LANE >> 2, _LANE & 3          # group and thread in group
+
+
+def _bytes(words: np.ndarray) -> np.ndarray:
+    """uint32 words [..., n] -> their s8 bytes as int32 [..., n, 4]."""
+    w = np.ascontiguousarray(words, dtype="<u4")
+    return w.view(np.int8).reshape(*w.shape, 4).astype(np.int32)
+
+
+def _mma_m16n8k32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """One ``mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`` from the 32
+    lanes' registers, laid out as the PTX ISA states: a [32, 4] and b
+    [32, 2] uint32 words -> the lanes' d [32, 4] int32 (a zero C)."""
+    ab, bb = _bytes(a), _bytes(b)
+    A = np.zeros((16, 32), np.int32)
+    B = np.zeros((32, 8), np.int32)
+    k4 = 4 * _T[:, None] + np.arange(4)
+    A[_G[:, None], k4], A[_G[:, None] + 8, k4] = ab[:, 0], ab[:, 1]
+    A[_G[:, None], k4 + 16], A[_G[:, None] + 8, k4 + 16] = ab[:, 2], ab[:, 3]
+    B[k4, _G[:, None]], B[k4 + 16, _G[:, None]] = bb[:, 0], bb[:, 1]
+    D = A @ B
+    return np.stack([D[_G, 2 * _T], D[_G, 2 * _T + 1],
+                     D[_G + 8, 2 * _T], D[_G + 8, 2 * _T + 1]], axis=1)
+
+
+def _spread_planes(x: np.ndarray) -> np.ndarray:
+    """B1's A word of a packed byte: byte p is plane p's code."""
+    x = x.astype(np.uint32)
+    return (x & 0x03) | ((x & 0x0C) << 6) | ((x & 0x30) << 12) | \
+        ((x & 0xC0) << 18)
+
+
+def _words(b: np.ndarray) -> np.ndarray:
+    """Four int8/uint8 planes [4, ...] -> one uint32 word each, plane k in
+    byte k (what ``transpose4`` writes)."""
+    u = b.astype(np.uint8).astype(np.uint32)
+    return u[0] | (u[1] << 8) | (u[2] << 16) | (u[3] << 24)
+
+
+def _pad(a: np.ndarray, axis: int, mult: int) -> np.ndarray:
+    widths = [(0, 0)] * a.ndim
+    widths[axis] = (0, -a.shape[axis] % mult)
+    return np.pad(a, widths)
+
+
+def _fwd_by_fragments(packed: np.ndarray, d4: np.ndarray) -> np.ndarray:
+    """B1 as the kernel contracts it: k ordered (byte column j, plane p),
+    one mma per 16 variants x 8 byte columns x 8 columns."""
+    M, C = packed.shape[0], d4.shape[2]
+    aw = _spread_planes(_pad(_pad(packed, 0, 16), 1, 8))    # [Mp, N4p]
+    bw = _words(_pad(d4, 1, 8))                             # [N4p, C]
+    out = np.zeros((aw.shape[0], C), np.int64)
+    for ks in range(0, aw.shape[1], 8):
+        for r in range(0, aw.shape[0], 16):
+            a = np.stack([aw[r + _G, ks + _T], aw[r + _G + 8, ks + _T],
+                          aw[r + _G, ks + 4 + _T],
+                          aw[r + _G + 8, ks + 4 + _T]], axis=1)
+            for c in range(0, C, 8):
+                b = np.stack([bw[ks + _T, c + _G], bw[ks + 4 + _T, c + _G]],
+                             axis=1)
+                d = _mma_m16n8k32(a, b)
+                for h in range(2):
+                    out[r + _G + 8 * h, c + 2 * _T] += d[:, 2 * h]
+                    out[r + _G + 8 * h, c + 2 * _T + 1] += d[:, 2 * h + 1]
+    return out[:M]
+
+
+def _t_by_fragments(packed: np.ndarray, dm: np.ndarray) -> np.ndarray:
+    """B2 as the kernel contracts it: output rows (plane p, byte column j),
+    an m16 tile being 16 byte columns of one plane; k is the variant, one
+    word per four consecutive variants."""
+    N4, C = packed.shape[1], dm.shape[1]
+    pk = _pad(_pad(packed, 0, 32), 1, 16)
+    x = _words(pk.reshape(-1, 4, pk.shape[1]).transpose(1, 0, 2))  # [Q, N4p]
+    aw = np.stack([(x >> (2 * p)) & 0x03030303 for p in range(4)])
+    bw = _words(_pad(dm, 0, 32).reshape(-1, 4, C).transpose(1, 0, 2))
+    out = np.zeros((4, aw.shape[2], C), np.int64)
+    for kq in range(0, aw.shape[1], 8):
+        for p in range(4):
+            for j in range(0, aw.shape[2], 16):
+                w = aw[p]
+                a = np.stack([w[kq + _T, j + _G], w[kq + _T, j + _G + 8],
+                              w[kq + 4 + _T, j + _G],
+                              w[kq + 4 + _T, j + _G + 8]], axis=1)
+                for c in range(0, C, 8):
+                    b = np.stack([bw[kq + _T, c + _G],
+                                  bw[kq + 4 + _T, c + _G]], axis=1)
+                    d = _mma_m16n8k32(a, b)
+                    for h in range(2):
+                        out[p, j + _G + 8 * h, c + 2 * _T] += d[:, 2 * h]
+                        out[p, j + _G + 8 * h, c + 2 * _T + 1] += \
+                            d[:, 2 * h + 1]
+    return out[:, :N4]
+
+
+def test_mma_fragment_map_is_a_matrix_product():
+    """The emulated mma against a plain int32 product of the same tiles."""
+    rng = np.random.default_rng(6)
+    A = rng.integers(-128, 128, size=(16, 32), dtype=np.int8)
+    B = rng.integers(-128, 128, size=(32, 8), dtype=np.int8)
+    k4 = 4 * _T[:, None] + np.arange(4)
+    word = lambda v: _words(np.moveaxis(v, -1, 0))          # noqa: E731
+    a = np.stack([word(A[_G[:, None], k4]), word(A[_G[:, None] + 8, k4]),
+                  word(A[_G[:, None], k4 + 16]),
+                  word(A[_G[:, None] + 8, k4 + 16])], axis=1)
+    b = np.stack([word(B[k4, _G[:, None]]), word(B[k4 + 16, _G[:, None]])],
+                 axis=1)
+    D = A.astype(np.int32) @ B.astype(np.int32)
+    d = _mma_m16n8k32(a, b)
+    np.testing.assert_array_equal(d[:, 0], D[_G, 2 * _T])
+    np.testing.assert_array_equal(d[:, 3], D[_G + 8, 2 * _T + 1])
+
+
+@pytest.mark.parametrize("shape", [(37, 83, 128), (17, 130, 256)])
+def test_fragment_contraction_matches_plain(shape):
+    """The kernels' operand words and k order, contracted fragment by
+    fragment in int32, equal the plain versions exactly (ragged M and N4,
+    code 3 included)."""
+    packed, d4, dm = _operands(*shape, seed=7)
+    np.testing.assert_array_equal(
+        _fwd_by_fragments(packed, d4),
+        grm_kernel.plane_dot_fwd_plain(torch.from_numpy(packed),
+                                       torch.from_numpy(d4)).numpy())
+    np.testing.assert_array_equal(
+        _t_by_fragments(packed, dm),
+        grm_kernel.plane_dot_t_plain(torch.from_numpy(packed),
+                                     torch.from_numpy(dm)).numpy())
+
+
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 1031, 128), (300, 1111, 256),
+                                   (4100, 65537, 128), (1, 1031, 128),
+                                   (15, 997, 256), (129, 4001, 128),
+                                   (129, 1031, 256), (15, 2000, 256),
+                                   (129, 4016, 128)])
+def test_kernels_match_plain_on_card(shape):
+    """The hand-written CUDA kernels against their plain versions, on the
+    card, at the GRM store's width N4 = store_width(N) (ragged shapes: M
+    and N off every tile size, N4 off the 8- and 32-byte-column steps)."""
+    _need_card()
     packed, d4, dm = (torch.from_numpy(a).cuda()
-                      for a in _operands(*shape, seed=shape[0]))
+                      for a in _operands(*shape, seed=shape[0],
+                                         n4=store_width(shape[1])))
     before = dict(grm_kernel.LAUNCHES)
     fwd = grm_kernel.plane_dot_fwd(packed, d4)
     t = grm_kernel.plane_dot_t(packed, dm)
@@ -169,3 +313,54 @@ def test_kernels_match_plain_on_card(shape):
     assert grm_kernel.LAUNCHES["plane_dot_t"] == before["plane_dot_t"] + 1
     assert torch.equal(fwd, grm_kernel.plane_dot_fwd_plain(packed, d4))
     assert torch.equal(t, grm_kernel.plane_dot_t_plain(packed, dm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fwd", "t"])
+def test_kernels_exact_at_int32_bound(kernel):
+    """Every code 2 and every slice 64 at the largest axis the wrappers
+    take (the largest store width below 2^22 for B1): each cell is
+    2 * 64 * (4 * N4 or M), just below 2^31, and must come out exact (s32
+    sums, no saturation)."""
+    _need_card()
+    C = 128
+    if kernel == "fwd":
+        M, N4 = 3, (1 << 22) - 4
+        rhs = torch.full((4, N4, C), 64, dtype=torch.int8, device="cuda")
+        want = 2 * 64 * 4 * N4
+    else:
+        M, N4 = (1 << 24) - 1, 4
+        rhs = torch.full((M, C), 64, dtype=torch.int8, device="cuda")
+        want = 2 * 64 * M
+    assert want < 2 ** 31
+    packed = torch.full((M, N4), 0xAA, dtype=torch.uint8, device="cuda")
+    got = grm_kernel.plane_dot_fwd(packed, rhs) if kernel == "fwd" else \
+        grm_kernel.plane_dot_t(packed, rhs)
+    torch.cuda.synchronize()
+    assert got.shape == ((M, C) if kernel == "fwd" else (4, N4, C))
+    assert torch.equal(got, torch.full_like(got, float(want)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fwd", "t"])
+@pytest.mark.parametrize("rows", ["ragged", "offset"])
+def test_kernels_reject_unaligned_rows(kernel, rows):
+    """A CUDA store whose rows do not start 4-byte aligned (N4 % 4 != 0,
+    or a base one byte in) is refused before any launch."""
+    _need_card()
+    packed, d4, dm = (torch.from_numpy(a).cuda()
+                      for a in _operands(37, 1031, 128, seed=9))
+    if rows == "offset":       # N4 = 260, the store's width, one byte in
+        packed, d4, dm = (torch.from_numpy(a).cuda() for a in
+                          _operands(37, 1031, 128, seed=9, n4=260))
+        flat = torch.zeros(packed.numel() + 1, dtype=torch.uint8,
+                           device="cuda")
+        flat[1:] = packed.reshape(-1)
+        packed = flat[1:].view(packed.shape)
+    assert packed.is_contiguous()
+    fn = grm_kernel.plane_dot_fwd if kernel == "fwd" else \
+        grm_kernel.plane_dot_t
+    before = dict(grm_kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="4-byte"):
+        fn(packed, d4 if kernel == "fwd" else dm)
+    assert grm_kernel.LAUNCHES == before

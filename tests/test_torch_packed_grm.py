@@ -23,7 +23,7 @@ import torch
 from saigegds_tpu_torch.ops import grm_kernel
 from saigegds_tpu_torch.ops.grm import build_grm
 from saigegds_tpu_torch.ops.packed_grm import Packed2GRM, build_packed2_grm, \
-    build_packed2_grm_streamed
+    build_packed2_grm_streamed, store_width, unpack_codes_2bit
 
 RTOL = 1e-13
 M_VARIANTS, N_SAMPLES = 97, 1031            # N % 4 != 0: the last plane pads
@@ -112,6 +112,39 @@ def test_matvec_goes_through_the_kernel_wrappers(grms, monkeypatch):
                             or _f(*a))
     tg.matvec(torch.ones(N_SAMPLES, 2, dtype=torch.float64))
     assert seen == ["plane_dot_fwd", "plane_dot_t"]
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 1031, 1040])
+def test_store_rows_are_word_aligned(n):
+    """Every width of the store is a multiple of 4 byte columns (kernels
+    B1 and B2 load four at a time), at most 3 past ceil(N/4); the padding
+    samples are code 0 and the store unpacks to the zeroed codes; the
+    streamed build lays it out the same."""
+    rng = np.random.default_rng(n)
+    codes = rng.integers(0, 4, size=(5, n), dtype=np.int8)
+    width = store_width(n)
+    assert width % 4 == 0 and -(-n // 4) <= width < -(-n // 4) + 4
+    g = build_packed2_grm(codes, device="cpu")
+    assert tuple(g.packed.shape) == (5, width)
+    full = unpack_codes_2bit(g.packed.numpy(), 4 * width)
+    np.testing.assert_array_equal(full[:, :n], np.where(codes < 3, codes, 0))
+    assert not full[:, n:].any()
+    s = build_packed2_grm_streamed(iter([(None, codes[:2]), (None, codes[2:])]),
+                                   n, 5, device="cpu")
+    assert torch.equal(s.packed, g.packed)
+
+
+def test_carried_store_is_packed_to_the_store_width(grms):
+    """The JAX store (N4 = ceil(N/4) = 258 here) comes across at the
+    port's width (260), holding the same codes."""
+    _, jg, tg, _ = grms
+    full = np.concatenate([np.concatenate([np.asarray(t) for t in lf], axis=1)
+                           for lf in jg.packed], axis=0)
+    assert full.shape[1] == -(-N_SAMPLES // 4) != store_width(N_SAMPLES)
+    assert tuple(tg.packed.shape) == (M_VARIANTS, store_width(N_SAMPLES))
+    np.testing.assert_array_equal(
+        unpack_codes_2bit(tg.packed.numpy(), N_SAMPLES),
+        unpack_codes_2bit(full, N_SAMPLES))
 
 
 @pytest.mark.parametrize("block", [17, M_VARIANTS])
