@@ -18,7 +18,10 @@ and prints no result line):
    samples, C = 128 and 256) and at the fit's (M = 16,384 GRM variants,
    N = 430,000, C = 128 and 256), each over a store of the GRM store's
    width; B4 (``indicator_dot``, int8 codes) at the aggregate
-   tests' single-variant batch (B = 256, N = 430,000, C = 128); B5
+   tests' single-variant batch (B = 256, N = 430,000, C = 128), B3 and B4
+   each beside ``torch._int_mm`` (cuBLAS int8 GEMM) on the indicators
+   decoded beforehand, a contraction-only yardstick the port never calls;
+   B5
    (``decode_codes``) on a ragged stream full of escapes and empty rows and
    on rare-variant streams of 256 and 2,048 rows x N = 430,000.  Every time
    is the median of several runs timed with CUDA events, printed beside the
@@ -39,9 +42,11 @@ and prints no result line):
    within 1e-8 relative with the same iteration counts;
 6. the scan from the fitted model at N = 430,000: a GDS of 4,096 variants
    (a MAF spectrum with rare variants, 0.5% missing, 16 variants enriched
-   in the fit's cases), ``assoc_spa(..., device="cuda")`` with 1,024-variant
-   blocks; B3 must launch once per block, every p-value must lie in
-   [0, 1] and some variants must go through SPA; then the first block
+   in the fit's cases) over the model's samples and 16 more that the model
+   lacks, at shuffled positions, so that every block is gathered to the
+   model's samples on the host; ``assoc_spa(..., device="cuda")`` with
+   1,024-variant blocks; B3 must launch once per block, every p-value must
+   lie in [0, 1] and some variants must go through SPA; then the first block
    again on the CPU, whose table must agree with the card's within 1e-10
    relative, and on the card through the int8 route
    (``packed_2bit=False``, one B4 launch), held to the CPU's table too;
@@ -81,6 +86,7 @@ BLOCK = 1024
 N_COV = 3
 MISS_RATE = 0.005
 N_ASSOC = 16            # variants of the first block tied to the phenotype
+N_EXTRA = 16            # scan GDS samples outside the model
 SEED = 20261016
 RTOL = 1e-10            # card vs CPU table agreement
 KERNEL_SHAPES = [(37, 1031), (BLOCK, N_SAMPLES)]
@@ -187,6 +193,41 @@ def compare_and_time(label: str, kern, plain, runs: int, least: dict,
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least)
 
 
+def int_mm_ms(label: str, codes, vs, kern_out, runs: int = 10):
+    """The yardstick of B3 and B4: ``torch._int_mm`` (cuBLAS int8 GEMM) on
+    the same contraction, contraction only: the indicators of ``codes``
+    (int [B, N] in the slices' sample order) are decoded into int8
+    [3B, N] beforehand, outside the time, and the slices are given row-
+    and column-major (the copy outside the time too); the faster counts.
+    Each result is held against the kernel's ``kern_out`` (f64
+    [B, 3, C]).  None, with the reason printed, when ``_int_mm`` refuses
+    the shapes."""
+    import torch
+    c = codes.to(torch.int8)
+    ind = torch.cat([torch.where(c == 3, 0, c), (c == 3).to(torch.int8),
+                     (c == 2).to(torch.int8)])
+    del c
+    B = codes.shape[0]
+    times = {}
+    for layout, rhs in (("row-major", vs),
+                        ("column-major", vs.t().contiguous().t())):
+        try:
+            got = torch._int_mm(ind, rhs)
+        except RuntimeError as e:
+            log(f"{label}: torch._int_mm refused the shapes "
+                f"{tuple(ind.shape)} x {tuple(rhs.shape)} {layout} "
+                f"({str(e).splitlines()[0]})")
+            continue
+        same = torch.equal(got.view(3, B, -1).transpose(0, 1).double(),
+                           kern_out)
+        times[layout] = median_ms(lambda: torch._int_mm(ind, rhs), runs)
+        log(f"{label}: torch._int_mm (cuBLAS int8 GEMM, contraction only, "
+            f"the indicators decoded beforehand), slices {layout}: "
+            f"{times[layout]:.3f} ms, "
+            f"{'equal to' if same else 'DIFFERENT from'} the kernel's result")
+    return min(times.values()) if times else None
+
+
 def check_kernel(B: int, N: int, device, gen) -> dict:
     """B3 on the card vs its plain version on the same tensors."""
     import torch
@@ -198,12 +239,19 @@ def check_kernel(B: int, N: int, device, gen) -> dict:
     vs4 = torch.randint(-64, 65, (4, n4, 128), dtype=torch.int8,
                         device=device, generator=gen)
     vs4.view(4 * n4, 128)[N:] = 0        # padded samples meet zero rows
-    return compare_and_time(
-        f"B3 B={B} N={N} C=128",
-        lambda: score_kernel.indicator_dot_2bit(packed, vs4),
+    label = f"B3 B={B} N={N} C=128"
+    res = compare_and_time(
+        label, lambda: score_kernel.indicator_dot_2bit(packed, vs4),
         lambda: score_kernel.indicator_dot_2bit_plain(packed, vs4), 10,
         bound(B * n4 + vs4.numel() + 4 * B * 3 * 128,
               2 * 3 * B * 4 * n4 * 128))
+    pi = packed.to(torch.int32)          # natural order: sample p*N4 + j
+    codes = torch.cat([(pi >> (2 * p)) & 3 for p in range(4)], dim=1)
+    del pi
+    res["library_ms"] = int_mm_ms(label, codes, vs4.view(4 * n4, 128),
+                                  score_kernel.indicator_dot_2bit(packed,
+                                                                  vs4))
+    return res
 
 
 def random_store(M: int, N: int, device, gen):
@@ -255,11 +303,14 @@ def check_b4(B: int, N: int, device, gen) -> dict:
                           generator=gen)
     vs = torch.randint(-64, 65, (N, 128), dtype=torch.int8, device=device,
                        generator=gen)
-    return compare_and_time(
-        f"B4 B={B} N={N} C=128",
-        lambda: score_kernel.indicator_dot(codes, vs),
+    label = f"B4 B={B} N={N} C=128"
+    res = compare_and_time(
+        label, lambda: score_kernel.indicator_dot(codes, vs),
         lambda: score_kernel.indicator_dot_plain(codes, vs), 10,
         bound(B * N + N * 128 + 4 * B * 3 * 128, 2 * 3 * B * N * 128))
+    res["library_ms"] = int_mm_ms(label, codes, vs,
+                                  score_kernel.indicator_dot(codes, vs))
+    return res
 
 
 def check_b5(codes: np.ndarray, device) -> dict:
@@ -376,6 +427,18 @@ def make_data(y: np.ndarray, n_variants: int, device, seed: int):
         g[torch.rand(shape, generator=gen, device=device) < MISS_RATE] = 3
         codes[s:e] = g.cpu().numpy()
     return codes
+
+
+def with_extra_samples(codes: np.ndarray, sample_id: np.ndarray,
+                       seed: int):
+    """``codes`` [M, N] with N_EXTRA random sample columns that the model
+    lacks inserted at shuffled positions, and the GDS's sample ids."""
+    rng = np.random.default_rng(seed)
+    at = np.sort(rng.integers(0, codes.shape[1] + 1, N_EXTRA))
+    extra = rng.integers(0, 3, (codes.shape[0], N_EXTRA)).astype(np.int8)
+    ids = np.insert(np.asarray(sample_id),
+                    at, 10**7 + np.arange(N_EXTRA)).astype(np.int32)
+    return np.insert(codes, at, extra, axis=1), ids
 
 
 def make_fit_data(n_samples: int, n_variants: int, device, seed: int):
@@ -800,12 +863,15 @@ def main() -> int:
 
         # 6. the scan from the fitted model
         t0 = time.perf_counter()
-        codes = make_data(data["y"], N_VARIANTS, device, SEED)
+        codes, sample_id = with_extra_samples(
+            make_data(data["y"], N_VARIANTS, device, SEED), data["sample.id"],
+            SEED + 5)
         gds = os.path.join(work, "scan.gds")
-        write_seqarray_gds(gds, codes, compress="ZIP_ra")
+        write_seqarray_gds(gds, codes, sample_id=sample_id, compress="ZIP_ra")
         del codes
-        log(f"scan setup: {N_VARIANTS} variants x {N_SAMPLES} samples, GDS "
-            f"{os.path.getsize(gds) / 1e6:.0f} MB, "
+        log(f"scan setup: {N_VARIANTS} variants x {len(sample_id)} samples "
+            f"({N_SAMPLES} in the model, {N_EXTRA} outside it at shuffled "
+            f"positions), GDS {os.path.getsize(gds) / 1e6:.0f} MB, "
             f"{time.perf_counter() - t0:.1f} s")
 
         torch.cuda.reset_peak_memory_stats()
@@ -819,8 +885,11 @@ def main() -> int:
         if inst["spa_n"] == 0 or refined == 0:
             raise AssertionError("no variant went through SPA")
         stages = {k: round(float(np.sum(inst[k])), 3)
-                  for k in ("decode_s", "pack_s", "upload_s", "dispatch_s",
-                            "drain_s")}
+                  for k in ("decode_s", "gather_s", "pack_s", "upload_s",
+                            "dispatch_s", "drain_s")}
+        if len(inst["gather_s"]) != n_blocks:
+            raise AssertionError("the scan did not gather the model's "
+                                 "samples in every block")
         log(f"scan on the card: {len(tab['pval'])} of {N_VARIANTS} variants "
             f"tested, {inst['spa_n']} through SPA ({refined} changed), "
             f"min p {tab['pval'].min():.3e}, {wall:.2f} s wall, "
@@ -828,7 +897,9 @@ def main() -> int:
             f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         log(f"  stage sums (s, stages overlap): "
-            f"{json.dumps(stages)}, spa_s {inst['spa_s']:.3f}")
+            f"{json.dumps(stages)}, spa_s {inst['spa_s']:.3f}; per block: "
+            f"decode {stages['decode_s'] / n_blocks:.3f} s, sample gather "
+            f"{stages['gather_s'] / n_blocks:.3f} s (inside pack_s)")
 
         # the first block on the CPU
         mask = np.zeros(N_VARIANTS, bool)
@@ -859,7 +930,8 @@ def main() -> int:
                     source=f"saigegds_tpu_torch/csrc/{source}.cu",
                     replaces=line, launches=count,
                     max_abs_err=max(c["max_abs_err"] for c in checks),
-                    **{k: main[k] for k in keys}, library_ms=None)
+                    **{k: main[k] for k in keys},
+                    library_ms=main.get("library_ms"))
 
     grm_fwd = [c["plane_dot_fwd"] for c in grm_checks]
     grm_t = [c["plane_dot_t"] for c in grm_checks]

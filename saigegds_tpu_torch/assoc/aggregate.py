@@ -261,23 +261,27 @@ def _maf_mac_summary(maf, mac):
 class _UnitSource:
     """Bounded-memory int8 code rows for units: small files use the
     whole-matrix cache, big ones random-access the GDS frames
-    (``SeqData.code_rows``)."""
+    (``SeqData.code_rows``).  ``cols`` (GDS columns of the model's
+    samples, or None) gathers the rows to the model's samples."""
 
     CACHE_LIMIT = 4 << 30
 
-    def __init__(self, seq: SeqData, inst: dict):
-        self.seq, self.inst = seq, inst
+    def __init__(self, seq: SeqData, inst: dict, cols=None):
+        self.seq, self.inst, self.cols = seq, inst, cols
         self.small = seq.n_variants * seq.n_samples <= self.CACHE_LIMIT
 
     def codes(self, idx) -> np.ndarray:
-        """int8 codes [len(idx), N] (3 = missing)."""
+        """int8 codes [len(idx), N] (3 = missing), N the model's samples."""
         t0 = time.perf_counter()
         idx = np.asarray(idx)
         if len(idx) == 0:
-            r = np.empty((0, self.seq.n_samples), np.int8)
+            r = np.empty((0, self.seq.n_samples if self.cols is None
+                          else len(self.cols)), np.int8)
         else:
             r = self.seq.code_matrix()[idx] if self.small \
                 else self.seq.code_rows(idx)
+            if self.cols is not None:
+                r = np.take(r, self.cols, axis=1)
             r = np.ascontiguousarray(r, dtype=np.int8)
         _tick(self.inst, "fetch_s", t0)
         return r
@@ -564,9 +568,6 @@ def _prepare(gdsfile, modobj, config: AggregateConfig, device):
         raise _not_ported("an aggregate test of DS/dosage nodes", "item 8")
     # sample alignment like the scan (R/assoc_single.r:136-142)
     cols, ii = _match_samples(seq.sample_id, model.sample_id)
-    if cols is not None:
-        raise _not_ported("a model/GDS sample subset or reordering",
-                          "item 8")
     scan_model = model.scan_model(sample_index=ii, var_ratio=config.var_ratio,
                                   device=dev)
     params = ScanParams(maf=0.0, mac=0.0, missing=1.0,
@@ -576,7 +577,7 @@ def _prepare(gdsfile, modobj, config: AggregateConfig, device):
                      batch=config.block_size, inst=inst)
     wbeta = np.asarray(config.wbeta, dtype=np.float64)  # [W, 2]
     wnames = [f"{b1:g}_{b2:g}" for b1, b2 in wbeta]
-    return kernel, wbeta, wnames, _UnitSource(seq, inst)
+    return kernel, wbeta, wnames, _UnitSource(seq, inst, cols)
 
 
 def _table(units: VariantUnits, summaries: List[dict]) -> dict:

@@ -129,11 +129,10 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
     if config.spa_mixed:
         raise NotImplementedError("spa_mixed is deprecated and not ported")
 
-    # sample alignment (R/assoc_single.r:136-142)
+    # sample alignment (R/assoc_single.r:136-142): cols restricts the
+    # genotype columns to the model's samples (GDS order), ii gathers the
+    # model's per-sample arrays to those columns
     cols, ii = _match_samples(seq.sample_id, model.sample_id)
-    if cols is not None:
-        raise _not_ported("a model/GDS sample subset or reordering",
-                          "item 8")
     scan_model = model.scan_model(sample_index=ii,
                                   var_ratio=config.var_ratio, device=dev)
 
@@ -151,7 +150,7 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
                                   variant_mask=variant_mask)
     res = _scan_blocks(scan_model, params, blocks, dev,
                        packed_2bit=config.packed_2bit,
-                       spa_compact=config.spa_compact,
+                       spa_compact=config.spa_compact, cols=cols,
                        instrument=instrument)
     idx = res.pop("__idx__")
 
@@ -177,26 +176,29 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
 
 def _scan_blocks(scan_model, params, block_iter, device: torch.device,
                  packed_2bit: bool = True, spa_compact: bool = True,
-                 instrument=None) -> dict:
+                 cols=None, instrument=None) -> dict:
     """Two-phase scan core for one binary model: batched score kernel +
     compact SPA (``_scan_blocks_multi`` of the JAX package, P = 1).
 
     Blocks ship 2-bit planar (kernel B3) or, with ``packed_2bit=False``,
     as the int8 codes themselves (kernel B4); phase 2 ships the flagged
-    codes 2-bit either way.
+    codes 2-bit either way.  ``cols`` (GDS columns of the model's samples,
+    from :func:`_match_samples`) gathers every block to the model's
+    samples before it is packed, so phase 1 and phase 2 both see them.
 
     ``instrument``: optional dict; per-block wall-times land in lists
     under ``decode_s`` (GDS block read, decode thread), ``pack_s`` (2-bit
     pack, pack thread), ``upload_s`` (host-to-device copy, upload thread),
     ``dispatch_s`` (phase-1 enqueue, main thread), ``drain_s`` (result
-    sync + readback), ``bytes`` (payload sizes), plus scalars ``spa_s``
+    sync + readback), ``bytes`` (payload sizes), ``gather_s`` (the sample
+    gather inside ``pack_s``, when ``cols`` is given), plus scalars ``spa_s``
     (phase-2 time) and ``spa_n`` (variants refined).  Stages overlap, so
     sums exceed wall-clock by design.
     """
     import time as _time
     if instrument is not None:
         for k in ("decode_s", "pack_s", "upload_s", "dispatch_s",
-                  "drain_s", "bytes"):
+                  "drain_s", "bytes", "gather_s"):
             instrument.setdefault(k, [])
         instrument.setdefault("spa_s", 0.0)
         instrument.setdefault("spa_n", 0)
@@ -225,6 +227,10 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
         for idx, G in it:
             t0 = _time.perf_counter()
             G = np.asarray(G, np.int8)
+            if cols is not None:
+                G = np.take(G, cols, axis=1)         # the model's samples
+                if instrument is not None:
+                    instrument["gather_s"].append(_time.perf_counter() - t0)
             # uint8 [n, ceil(N/4)], or the int8 block itself
             payload = _pack2_block(G) if packed_2bit else G
             if instrument is not None:

@@ -1,5 +1,6 @@
 // Scan phase 1 from int8 codes on Hopper: exact integer contraction of
-// every variant's genotype indicators with the sliced model vectors.
+// every variant's genotype indicators with the sliced model vectors, on
+// the int8 tensor cores.
 //
 // Replaces saigegds_tpu/ops/pallas_score.py::_kernel (the Pallas body of
 // indicator_dot).  For B variants as int8 codes [B, N] (0/1/2, 3 = missing)
@@ -8,7 +9,7 @@
 //   out[b, 0, c] = sum_i g0(code) * vs[i, c]   g0 = code, missing -> 0
 //   out[b, 1, c] = sum_i [code == 3] * vs[i, c]
 //   out[b, 2, c] = sum_i [code == 2] * vs[i, c]
-// It is kernel B3 (csrc/indicator_dot_2bit.cu) at one byte per genotype and
+// It is kernel B3 (indicator_dot_2bit.cu) at one byte per genotype and
 // without the plane split.  Every product is an integer of at most
 // 2 * 64 = 128, so int32 sums are exact for any N < 2^24 samples; the
 // Pallas kernel's 131,072-sample f32 segments are not needed.
@@ -17,163 +18,123 @@
 // vectors, N = 430,000 samples, C = 128) the function reads 110 MB of
 // codes and 55 MB of slices, 49 us at 3.35 TB/s, and does 4.2e10
 // multiply-adds (8.5e10 int8 operations, 43 us at the int8 tensor-core
-// peak): balanced.  This simple form runs the multiply-adds four samples
-// at a time through __dp4a on the CUDA cores, 1.06e10 dp4a, so it is bound
-// by those instructions; the tensor-core form (int8 mma/wgmma with s32
-// accumulation) is what would move it.
+// peak): balanced, by a hair on the bytes.  The first version ran the
+// multiply-adds on the CUDA cores, four a dot-product instruction
+// (1.46 ms); this one runs them on mma.sync.m16n8k32.s32.s8.s8.s32 (no
+// .satfinite: exact).
 //
-// Design.  A block owns TB variants x TC columns and one contiguous range
-// of sample quads (four consecutive samples); ranges split the sample axis
-// so enough blocks fill the card, and partial sums meet in the output
-// through int32 atomicAdd (exact and order-independent).  Per stage of JT
-// quads the block widens its codes once into (g0, m, g2) indicator words in
-// shared memory (byte k = sample 4j + k) and transposes four sample rows of
-// slice bytes into one word per column, so each thread's inner step is one
-// shared load per operand and twelve dp4a.  Samples at or past N read as
-// code 0 with zero slices.
+// Design.  B3's, with k the sample: the A word of variant b at sample quad
+// q is its four code bytes 4q .. 4q+3 as they lie in memory, the B word of
+// column c is vs[4q .. 4q+3, c] (transpose4), so one mma covers 16 variants
+// x 32 samples x 8 columns.  The block tile, the in-register indicator
+// split and the launch are B3's (indicator_tile.cuh).  Per stage (32
+// sample quads) a thread loads the next stage's global bytes into
+// registers before the current stage's mmas.  Two blocks per SM.  Rows
+// start at b * N, which is 4-byte aligned for one sample count in four: a
+// thread loads the aligned words that cover its four codes and
+// funnel-shifts them (int8_mma.cuh fetch4 / bytes4).  Samples at or past N
+// meet zero slices.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "indicator_tile.cuh"
+
 namespace {
 
-constexpr int TB = 64;                 // variants per block
-constexpr int TC = 128;                // columns per block
-constexpr int JT = 16;                 // sample quads per shared-memory stage
-constexpr int THREADS = 256;           // 8 warps
-constexpr int RB = TB / (THREADS / 32);  // variants per thread (warp-uniform)
-constexpr int CQ = TC / 4;             // column quads per block (one per lane)
-static_assert(CQ == 32, "one column quad per lane");
+using namespace indicator_tile;
+using namespace int8_mma;
 
-__global__ void __launch_bounds__(THREADS)
+static_assert(TB * JT % THREADS == 0,
+              "every thread stages the same count of A words");
+
+__global__ void __launch_bounds__(THREADS, 2)
 indicator_dot_kernel(const int8_t* __restrict__ codes,
                      const int8_t* __restrict__ vs, int* __restrict__ out,
                      int B, long long N, int C, long long quads_per_split) {
-  // (g0, m, g2, -) indicator words: byte k = sample 4j + k (16 KB)
-  __shared__ uint4 ind[JT][TB];
-  // column quad q: word k holds samples 4j .. 4j+3 of column 4q+k (8 KB)
-  __shared__ uint4 vsm[JT][CQ];
+  // A, row r: code words of variant b0 + r (byte k = sample 4q + k)
+  __shared__ __align__(16) uint32_t as[TB][AS];            // 4.5 KB
+  // B, quad q: word c holds vs[4q .. 4q+3, c0 + c]
+  __shared__ __align__(16) uint32_t bs[JT][BS];            // 17 KB
+  constexpr int A_IT = TB * JT / THREADS;       // code words a thread
+  constexpr int B_IT = JT * CQ / THREADS;       // (quad, column quad)s
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c0 = blockIdx.x * TC;
-  const int b0 = blockIdx.y * TB;
+  const Lane lane;
+  const int b0 = blockIdx.x * TB;
+  const int c0 = blockIdx.y * TC;
   const long long NQ = (N + 3) / 4;
   const long long jbeg = (long long)blockIdx.z * quads_per_split;
   const long long jend = min(NQ, jbeg + quads_per_split);
+  const long long send = min(N, 4 * jend);      // the split's last sample
 
-  int acc[RB][4][3];
+  // One stage's global reads, held in registers while the previous stage
+  // computes.  Slices past the split's last sample read as 0; codes there
+  // may hold any value and meet those zero slices, and rows past B read
+  // as 0 and are never written out.
+  uint2 ra[A_IT];
+  uint32_t rb[B_IT][4];
+  auto fetch = [&](long long j0) {
 #pragma unroll
-  for (int r = 0; r < RB; ++r)
+    for (int it = 0; it < A_IT; ++it) {
+      const int e = threadIdx.x + it * THREADS;
+      const int b = b0 + e / JT;
+      const long long s0 = 4 * (j0 + e % JT);
+      ra[it] = fetch4(reinterpret_cast<const uint8_t*>(codes) +
+                          (long long)b * N + s0,
+                      b < B ? (int)max(0LL, min(4LL, send - s0)) : 0);
+    }
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
+    for (int it = 0; it < B_IT; ++it) {
+      const int e = threadIdx.x + it * THREADS;
+      const long long s0 = 4 * (j0 + e / CQ);
+      const int8_t* src = vs + s0 * C + c0 + 4 * (e % CQ);
 #pragma unroll
-      for (int g = 0; g < 3; ++g) acc[r][k][g] = 0;
+      for (int k = 0; k < 4; ++k)
+        rb[it][k] = s0 + k < send ? *reinterpret_cast<const uint32_t*>(
+                                        src + (long long)k * C)
+                                  : 0u;
+    }
+  };
+  // ... then masked to 2-bit codes (A) and transposed (B) in shared memory
+  auto stash = [&]() {
+#pragma unroll
+    for (int it = 0; it < A_IT; ++it) {
+      const int e = threadIdx.x + it * THREADS;
+      // the row's start modulo 4 (sample quads start 4-byte apart)
+      const uint32_t low = (uint32_t)reinterpret_cast<uintptr_t>(codes) +
+                           (uint32_t)(b0 + e / JT) * (uint32_t)N;
+      as[e / JT][e % JT] = bytes4(ra[it], low) & 0x03030303u;
+    }
+#pragma unroll
+    for (int it = 0; it < B_IT; ++it) {
+      const int e = threadIdx.x + it * THREADS;
+      *reinterpret_cast<uint4*>(&bs[e / CQ][4 * (e % CQ)]) =
+          transpose4(rb[it][0], rb[it][1], rb[it][2], rb[it][3]);
+    }
+  };
 
+  int acc[3][NT][4] = {};             // [indicator][n8 tile][fragment]
+  if (jbeg < jend) fetch(jbeg);
   for (long long j0 = jbeg; j0 < jend; j0 += JT) {
-    // widen TB x JT code quads; codes past the range, N or B read as 0,
-    // whose indicators are all zero (rows need not be 4-byte aligned, so
-    // the four bytes load one at a time)
-    for (int e = threadIdx.x; e < TB * JT; e += THREADS) {
-      const int r = e / JT, jj = e % JT;
-      const int b = b0 + r;
-      const long long j = j0 + jj;
-      uint32_t cw = 0u;
-      if (b < B && j < jend) {
-        const int8_t* src = codes + (long long)b * N + 4 * j;
-        const long long left = N - 4 * j;
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (k < left) cw |= ((uint32_t)(uint8_t)src[k] & 3u) << (8 * k);
-      }
-      const uint32_t m = cw & (cw >> 1) & 0x01010101u;    // code 3
-      const uint32_t g2 = (cw >> 1) & ~cw & 0x01010101u;  // code 2
-      const uint32_t g0 = cw - 3u * m;                    // 3 -> 0
-      ind[jj][r] = make_uint4(g0, m, g2, 0u);
-    }
-    // stage JT quads x TC columns, transposed so that one word holds the
-    // four samples of one column (dp4a's operand)
-    for (int e = threadIdx.x; e < JT * CQ; e += THREADS) {
-      const int jj = e / CQ, q = e % CQ;
-      const long long j = j0 + jj;
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-      if (j < jend) {
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-          if (4 * j + p < N)
-            w[p] = *reinterpret_cast<const uint32_t*>(
-                vs + (4 * j + p) * C + c0 + 4 * q);
-      }
-      const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
-      const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
-      const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
-      const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
-      vsm[jj][q] = make_uint4(__byte_perm(lo01, lo23, 0x5410),
-                              __byte_perm(lo01, lo23, 0x7632),
-                              __byte_perm(hi01, hi23, 0x5410),
-                              __byte_perm(hi01, hi23, 0x7632));
-    }
+    stash();
     __syncthreads();
-
-#pragma unroll 4
-    for (int jj = 0; jj < JT; ++jj) {
-      const uint4 v = vsm[jj][lane];
-      const int vw[4] = {(int)v.x, (int)v.y, (int)v.z, (int)v.w};
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const uint4 g = ind[jj][warp * RB + r];   // warp-wide broadcast
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          acc[r][k][0] = __dp4a((int)g.x, vw[k], acc[r][k][0]);
-          acc[r][k][1] = __dp4a((int)g.y, vw[k], acc[r][k][1]);
-          acc[r][k][2] = __dp4a((int)g.z, vw[k], acc[r][k][2]);
-        }
-      }
-    }
+    if (j0 + JT < jend) fetch(j0 + JT);       // in flight during the mmas
+    contract_stage(as, bs, acc, lane);
     __syncthreads();
   }
-
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    const int b = b0 + warp * RB + r;
-    if (b >= B) break;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      int* o = out + (long long)b * 3 * C + c0 + 4 * lane + k;
-      atomicAdd(o, acc[r][k][0]);
-      atomicAdd(o + C, acc[r][k][1]);
-      atomicAdd(o + 2 * C, acc[r][k][2]);
-    }
-  }
+  add_to_out(out, acc, B, C, b0, c0, lane);
 }
 
 }  // namespace
 
 // Zero ``out`` and launch on ``stream``.  B, N, C as above; C must be a
-// multiple of 128 and ``vs`` 4-byte aligned (the caller checks).  Returns
-// the CUDA error code of the launch (0 = success).
+// multiple of 128 and ``vs`` 4-byte aligned (the caller checks); ``codes``
+// may start at any byte.  Returns the CUDA error code of the launch
+// (0 = success).
 extern "C" int sg_indicator_dot(const void* codes, const void* vs, void* out,
                                 long long B, long long N, long long C,
                                 int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(out, 0, (size_t)B * 3 * (size_t)C * sizeof(int), s);
-  if (err != cudaSuccess || B == 0 || N == 0 || C == 0) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-
-  dim3 grid((unsigned)(C / TC), (unsigned)((B + TB - 1) / TB), 1u);
-  // split the sample quads so that about four blocks per SM are in flight
-  const long long tiles = (long long)grid.x * grid.y;
-  const long long stages = ((N + 3) / 4 + JT - 1) / JT;
-  long long splits = (4LL * sms + tiles - 1) / tiles;
-  splits = splits < 1 ? 1 : (splits > stages ? stages : splits);
-  const long long stages_per = (stages + splits - 1) / splits;
-  grid.z = (unsigned)((stages + stages_per - 1) / stages_per);
-  indicator_dot_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const int8_t*>(codes), static_cast<const int8_t*>(vs),
-      static_cast<int*>(out), (int)B, N, (int)C, stages_per * JT);
-  return (int)cudaGetLastError();
+  return indicator_tile::launch<int8_t>(indicator_dot_kernel, codes, vs,
+                                        out, B, N, (N + 3) / 4, C, device,
+                                        stream);
 }

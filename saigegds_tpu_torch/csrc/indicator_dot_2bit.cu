@@ -1,6 +1,6 @@
 // Scan phase 1 on Hopper: fused planar 2-bit decode + exact integer
 // contraction of every variant's genotype indicators with the sliced model
-// vectors.
+// vectors, on the int8 tensor cores.
 //
 // Replaces saigegds_tpu/ops/pallas_score.py::_kernel2 (the Pallas body of
 // indicator_dot_2bit).  For a block of B variants, packed as uint8 [B, N4]
@@ -15,166 +15,121 @@
 // 2^17-sample segments existed only for f32 accumulators; there are none.
 //
 // What bounds it.  At the main-path shape (B = 1024 variants, N = 430,000
-// samples, C = 128 columns) a block reads 110 MB of packed codes and 55 MB
-// of int8 slices; that is 50 us of HBM traffic.  The arithmetic is
-// B * N * C = 5.6e10 integer adds per block, one conditional int32 add per
-// sample and column, so this simple form is bound by integer operations,
-// not by memory.  It executes them four samples at a time through __dp4a
-// (the four planes of one packed byte against the four planes' slice bytes
-// of one column): three dp4a per byte, variant and column, 4.2e10 in all.
-// The later tensor-core form (int8 mma/wgmma with s32 accumulation, fed by
-// TMA) is what moves that bound.
+// samples, C = 128 columns) the function reads 110 MB of packed codes and
+// 55 MB of slices (50 us at 3.35 TB/s) and does 3 * B * N * C = 1.7e14
+// multiply-adds, 3.4e14 int8 operations: 0.171 ms at the dense int8
+// tensor-core peak of 1,979 TOP/s, a rate only wgmma reaches.  So it is
+// bound by operations.  The first version ran them on the CUDA cores, four
+// samples a dot-product instruction (4.97 ms); this one runs them on
+// mma.sync.m16n8k32.s32.s8.s8.s32 (no .satfinite: exact).
 //
-// Design.  A block owns TB variants x TC columns and one contiguous range
-// of byte columns; ranges split the sample axis so enough blocks fill the
-// card, and partial sums meet in the output through int32 atomicAdd (exact
-// and order-independent).  Per stage of JT byte columns the block decodes
-// its packed bytes once into (g0, m, g2) indicator words in shared memory
-// and transposes the four planes' slice bytes of each column into one
-// word, so each thread's inner step is one shared load per operand and
-// twelve dp4a (RB variants x 4 columns x 3 indicators per thread).
+// Design.  k runs over (byte column j, plane p), as in B1 (plane_dot.cu):
+// the A word of variant b at byte column j is its packed byte with each bit
+// pair spread to a byte (spread_planes), the B word of column c is the four
+// planes' slice bytes vs4[0..3, j, c] (transpose4), so one mma covers 16
+// variants x 8 byte columns (32 samples) x 8 columns.  The block tile, the
+// in-register indicator split and the launch are B4's too
+// (indicator_tile.cuh).  Per stage (32 byte columns) a thread loads the
+// next stage's global bytes into registers before the current stage's
+// mmas, then spreads them into shared memory.  Two blocks per SM.  Rows
+// need not start 4-byte aligned (N4 = ceil(N/4) % 4 != 0 for three of four
+// sample counts): a thread loads the aligned words that cover its four
+// bytes and funnel-shifts them (int8_mma.cuh fetch4 / bytes4), so the
+// payload keeps the layout the host packs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "indicator_tile.cuh"
+
 namespace {
 
-constexpr int TB = 64;                 // variants per block
-constexpr int TC = 128;                // columns per block
-constexpr int JT = 16;                 // byte columns per shared-memory stage
-constexpr int THREADS = 256;           // 8 warps
-constexpr int RB = TB / (THREADS / 32);  // variants per thread (warp-uniform)
-constexpr int CQ = TC / 4;             // column quads per block (one per lane)
-static_assert(CQ == 32, "one column quad per lane");
+using namespace indicator_tile;
+using namespace int8_mma;
 
-// Byte k of the result is bit pair k of x: plane k's 2-bit code.
-__device__ __forceinline__ uint32_t spread_planes(uint32_t x) {
-  return (x & 0x03u) | ((x & 0x0Cu) << 6) | ((x & 0x30u) << 12) |
-         ((x & 0xC0u) << 18);
-}
+static_assert(TB * (JT / 4) == THREADS, "one A word a thread");
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 indicator_dot_2bit_kernel(const uint8_t* __restrict__ packed,
                           const int8_t* __restrict__ vs4,
                           int* __restrict__ out, int B, long long N4, int C,
                           long long cols_per_split) {
-  // (g0, m, g2, -) indicator words: byte k = plane k's indicator (16 KB)
-  __shared__ uint4 ind[JT][TB];
-  // column quad q: word k holds planes 0..3 of column 4q+k (8 KB)
-  __shared__ uint4 vsm[JT][CQ];
+  // A, row r: spread planes of the stage's packed bytes of variant b0 + r
+  __shared__ __align__(16) uint32_t as[TB][AS];            // 4.5 KB
+  // B, byte column jj: word c holds planes 0..3 of column c0 + c
+  __shared__ __align__(16) uint32_t bs[JT][BS];            // 17 KB
+  constexpr int B_IT = JT * CQ / THREADS;       // column quads a thread
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c0 = blockIdx.x * TC;
-  const int b0 = blockIdx.y * TB;
+  const Lane lane;
+  const int b0 = blockIdx.x * TB;
+  const int c0 = blockIdx.y * TC;
   const long long jbeg = (long long)blockIdx.z * cols_per_split;
   const long long jend = min(N4, jbeg + cols_per_split);
+  // the thread's A word: four byte columns of one row
+  const int ra_row = threadIdx.x / (JT / 4);
+  const int ra_col = 4 * (threadIdx.x % (JT / 4));
+  const uint8_t* ra_src = packed + (long long)(b0 + ra_row) * N4 + ra_col;
+  const bool ra_live = b0 + ra_row < B;
+  // the row's start modulo 4 (stages and ra_col are multiples of 4)
+  const uint32_t ra_low = (uint32_t)reinterpret_cast<uintptr_t>(ra_src);
 
-  int acc[RB][4][3];
+  // One stage's global reads, held in registers while the previous stage
+  // computes.  Rows past B read as code 0; bytes past the range may hold
+  // any code and meet zero slices, as bytes past B's rows meet nothing.
+  uint2 ra;
+  uint32_t rb[B_IT][4];
+  auto fetch = [&](long long j0) {
+    const long long left = jend - (j0 + ra_col);
+    ra = fetch4(ra_src + j0,
+                ra_live ? (int)max(0LL, min(4LL, left)) : 0);
 #pragma unroll
-  for (int r = 0; r < RB; ++r)
+    for (int it = 0; it < B_IT; ++it) {
+      const int e = threadIdx.x + it * THREADS;
+      const long long j = j0 + e / CQ;
+      const int8_t* src = vs4 + j * C + c0 + 4 * (e % CQ);
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
+      for (int p = 0; p < 4; ++p)
+        rb[it][p] = j < jend ? *reinterpret_cast<const uint32_t*>(
+                                   src + (long long)p * N4 * C)
+                             : 0u;
+    }
+  };
+  // ... then spread into A and transposed into B in shared memory
+  auto stash = [&]() {
+    const uint32_t x = bytes4(ra, ra_low);
+    *reinterpret_cast<uint4*>(&as[ra_row][ra_col]) =
+        make_uint4(spread_planes(x & 0xFFu), spread_planes((x >> 8) & 0xFFu),
+                   spread_planes((x >> 16) & 0xFFu), spread_planes(x >> 24));
 #pragma unroll
-      for (int g = 0; g < 3; ++g) acc[r][k][g] = 0;
+    for (int it = 0; it < B_IT; ++it) {
+      const int e = threadIdx.x + it * THREADS;
+      *reinterpret_cast<uint4*>(&bs[e / CQ][4 * (e % CQ)]) =
+          transpose4(rb[it][0], rb[it][1], rb[it][2], rb[it][3]);
+    }
+  };
 
+  int acc[3][NT][4] = {};             // [indicator][n8 tile][fragment]
+  if (jbeg < jend) fetch(jbeg);
   for (long long j0 = jbeg; j0 < jend; j0 += JT) {
-    // decode TB x JT packed bytes; bytes past the range or past B read as
-    // code 0, whose indicators are all zero
-    for (int e = threadIdx.x; e < TB * JT; e += THREADS) {
-      const int r = e / JT, jj = e % JT;
-      const int b = b0 + r;
-      const long long j = j0 + jj;
-      const uint32_t x =
-          (b < B && j < jend) ? (uint32_t)packed[(long long)b * N4 + j] : 0u;
-      const uint32_t cw = spread_planes(x);
-      const uint32_t m = cw & (cw >> 1) & 0x01010101u;    // code 3
-      const uint32_t g2 = (cw >> 1) & ~cw & 0x01010101u;  // code 2
-      const uint32_t g0 = cw - 3u * m;                    // 3 -> 0
-      ind[jj][r] = make_uint4(g0, m, g2, 0u);
-    }
-    // stage JT rows x TC columns of the four planes, transposed so that
-    // one word holds the four planes of one column (dp4a's operand)
-    for (int e = threadIdx.x; e < JT * CQ; e += THREADS) {
-      const int jj = e / CQ, q = e % CQ;
-      const long long j = j0 + jj;
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-      if (j < jend) {
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-          w[p] = *reinterpret_cast<const uint32_t*>(
-              vs4 + ((long long)p * N4 + j) * C + c0 + 4 * q);
-      }
-      const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
-      const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
-      const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
-      const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
-      vsm[jj][q] = make_uint4(__byte_perm(lo01, lo23, 0x5410),
-                              __byte_perm(lo01, lo23, 0x7632),
-                              __byte_perm(hi01, hi23, 0x5410),
-                              __byte_perm(hi01, hi23, 0x7632));
-    }
+    stash();
     __syncthreads();
-
-#pragma unroll 4
-    for (int jj = 0; jj < JT; ++jj) {
-      const uint4 v = vsm[jj][lane];
-      const int vw[4] = {(int)v.x, (int)v.y, (int)v.z, (int)v.w};
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const uint4 g = ind[jj][warp * RB + r];   // warp-wide broadcast
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          acc[r][k][0] = __dp4a((int)g.x, vw[k], acc[r][k][0]);
-          acc[r][k][1] = __dp4a((int)g.y, vw[k], acc[r][k][1]);
-          acc[r][k][2] = __dp4a((int)g.z, vw[k], acc[r][k][2]);
-        }
-      }
-    }
+    if (j0 + JT < jend) fetch(j0 + JT);       // in flight during the mmas
+    contract_stage(as, bs, acc, lane);
     __syncthreads();
   }
-
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    const int b = b0 + warp * RB + r;
-    if (b >= B) break;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      int* o = out + (long long)b * 3 * C + c0 + 4 * lane + k;
-      atomicAdd(o, acc[r][k][0]);
-      atomicAdd(o + C, acc[r][k][1]);
-      atomicAdd(o + 2 * C, acc[r][k][2]);
-    }
-  }
+  add_to_out(out, acc, B, C, b0, c0, lane);
 }
 
 }  // namespace
 
 // Zero ``out`` and launch on ``stream``.  B, N4, C as above; C must be a
-// multiple of 128 and every pointer 4-byte aligned (the caller checks).
-// Returns the CUDA error code of the launch (0 = success).
+// multiple of 128 and ``vs4`` 4-byte aligned (the caller checks); ``packed``
+// may start at any byte.  Returns the CUDA error code of the launch
+// (0 = success).
 extern "C" int sg_indicator_dot_2bit(const void* packed, const void* vs4,
                                      void* out, long long B, long long N4,
                                      long long C, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(out, 0, (size_t)B * 3 * (size_t)C * sizeof(int), s);
-  if (err != cudaSuccess || B == 0 || N4 == 0 || C == 0) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-
-  dim3 grid((unsigned)(C / TC), (unsigned)((B + TB - 1) / TB), 1u);
-  // split the byte columns so that about four blocks per SM are in flight
-  const long long tiles = (long long)grid.x * grid.y;
-  const long long stages = (N4 + JT - 1) / JT;
-  long long splits = (4LL * sms + tiles - 1) / tiles;
-  splits = splits < 1 ? 1 : (splits > stages ? stages : splits);
-  const long long stages_per = (stages + splits - 1) / splits;
-  grid.z = (unsigned)((stages + stages_per - 1) / stages_per);
-  indicator_dot_2bit_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const int8_t*>(vs4),
-      static_cast<int*>(out), (int)B, N4, (int)C, stages_per * JT);
-  return (int)cudaGetLastError();
+  return indicator_tile::launch<uint8_t>(indicator_dot_2bit_kernel, packed,
+                                         vs4, out, B, N4, N4, C, device,
+                                         stream);
 }

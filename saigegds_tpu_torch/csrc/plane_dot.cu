@@ -64,7 +64,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "int8_mma.cuh"
+
 namespace {
+
+using int8_mma::mma_s8;
+using int8_mma::spread_planes;
+using int8_mma::transpose4;
 
 constexpr int THREADS = 256;                // 8 warps
 constexpr int WARPS = THREADS / 32;
@@ -103,41 +109,6 @@ static_assert(T_WM % 16 == 0 && T_JW % 16 == 0,
               "an m16 tile is 16 byte columns of one plane");
 static_assert(T_MQ * CQ % THREADS == 0,
               "every thread stages the same count of words");
-
-// Byte k of the result is bit pair k of x: plane k's 2-bit code.
-__device__ __forceinline__ uint32_t spread_planes(uint32_t x) {
-  return (x & 0x03u) | ((x & 0x0Cu) << 6) | ((x & 0x30u) << 12) |
-         ((x & 0xC0u) << 18);
-}
-
-// 4 x 4 byte transpose: word k of the result holds byte k of w0..w3 (in
-// that order, lowest byte first).
-__device__ __forceinline__ uint4 transpose4(uint32_t w0, uint32_t w1,
-                                            uint32_t w2, uint32_t w3) {
-  const uint32_t lo01 = __byte_perm(w0, w1, 0x5140);
-  const uint32_t hi01 = __byte_perm(w0, w1, 0x7362);
-  const uint32_t lo23 = __byte_perm(w2, w3, 0x5140);
-  const uint32_t hi23 = __byte_perm(w2, w3, 0x7362);
-  return make_uint4(__byte_perm(lo01, lo23, 0x5410),
-                    __byte_perm(lo01, lo23, 0x7632),
-                    __byte_perm(hi01, hi23, 0x5410),
-                    __byte_perm(hi01, hi23, 0x7632));
-}
-
-// d += a * b on the int8 tensor cores: a is a 16 x 32 s8 tile (row-major
-// fragment), b a 32 x 8 s8 tile (column-major fragment), d 16 x 8 s32.
-// With g = lane >> 2 and t = lane & 3: a0/a1 hold rows g/g+8 at k 4t..4t+3,
-// a2/a3 the same rows at k 16+4t..16+4t+3; b0/b1 hold column g at those k;
-// d0,d1 are row g at columns 2t, 2t+1 and d2,d3 row g+8.  No .satfinite:
-// the s32 sums wrap like int32 and are exact under the bound above.
-__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // B1: a block owns 128 variants x 128 columns x one split of the byte
 // columns.

@@ -1,6 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
+Each ``csrc/<name>.cu`` has a plain C interface; the headers of ``csrc/``
+(``*.cuh``) are on its include path, and a header newer than a built
+library rebuilds it.  At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under this
 package's ``_build/`` directory and loaded with ``ctypes``; a failed build
 raises.  Nothing here runs at import time, so the package imports on a
@@ -21,7 +23,8 @@ _PKG_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", CSRC_DIR]
 
 _libs = {}
 BUILD_LOG = {}          # name -> nvcc's output (registers, spills per kernel)
@@ -66,8 +69,10 @@ def load(name: str) -> ctypes.CDLL:
             return lib
         src = os.path.join(CSRC_DIR, f"{name}.cu")
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
-        if not os.path.exists(so) or \
-                os.path.getmtime(so) < os.path.getmtime(src):
+        newest = max(os.path.getmtime(os.path.join(CSRC_DIR, f))
+                     for f in os.listdir(CSRC_DIR)
+                     if f == f"{name}.cu" or f.endswith(".cuh"))
+        if not os.path.exists(so) or os.path.getmtime(so) < newest:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
             proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],

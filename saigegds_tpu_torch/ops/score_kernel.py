@@ -9,8 +9,11 @@ CUDA tensor each launches its hand-written Hopper kernel
 (``csrc/indicator_dot_2bit.cu`` replacing the Pallas body ``_kernel2``,
 ``csrc/indicator_dot.cu`` replacing ``_kernel``); on a CPU tensor it runs
 its plain PyTorch version.  Both return the same exact integers: the
-kernels accumulate in int32 (exact for N < 2^24), the plain versions in
-f64 (exact below 2^53).
+kernels contract on the int8 tensor cores (``mma.sync`` m16n8k32, s8 x s8
+with s32 accumulators; exact for N < 2^24), the plain versions in f64
+(exact below 2^53).  The kernels take codes whose rows start at any byte
+(N or N4 not a multiple of 4, or a view into a buffer); the slices must be
+4-byte aligned.
 """
 
 from __future__ import annotations

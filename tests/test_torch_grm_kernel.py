@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_mma import _G, _T, _mma_m16n8k32, _pad, _spread_planes, \
+    _words
 from saigegds_tpu_torch.ops import grm_kernel
 from saigegds_tpu_torch.ops.packed_grm import store_width
 
@@ -152,53 +154,7 @@ def test_wrappers_reject(kernel, bad):
         fn(packed, rhs)
 
 
-# The kernels' operand words and fragment map, in numpy.  On the card B1 and
-# B2 contract on the int8 tensor cores with mma.sync m16n8k32 (s8 x s8 ->
-# s32); a 32-bit word holds four consecutive k as s8 bytes, lowest first.
-_LANE = np.arange(32)
-_G, _T = _LANE >> 2, _LANE & 3          # group and thread in group
-
-
-def _bytes(words: np.ndarray) -> np.ndarray:
-    """uint32 words [..., n] -> their s8 bytes as int32 [..., n, 4]."""
-    w = np.ascontiguousarray(words, dtype="<u4")
-    return w.view(np.int8).reshape(*w.shape, 4).astype(np.int32)
-
-
-def _mma_m16n8k32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """One ``mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`` from the 32
-    lanes' registers, laid out as the PTX ISA states: a [32, 4] and b
-    [32, 2] uint32 words -> the lanes' d [32, 4] int32 (a zero C)."""
-    ab, bb = _bytes(a), _bytes(b)
-    A = np.zeros((16, 32), np.int32)
-    B = np.zeros((32, 8), np.int32)
-    k4 = 4 * _T[:, None] + np.arange(4)
-    A[_G[:, None], k4], A[_G[:, None] + 8, k4] = ab[:, 0], ab[:, 1]
-    A[_G[:, None], k4 + 16], A[_G[:, None] + 8, k4 + 16] = ab[:, 2], ab[:, 3]
-    B[k4, _G[:, None]], B[k4 + 16, _G[:, None]] = bb[:, 0], bb[:, 1]
-    D = A @ B
-    return np.stack([D[_G, 2 * _T], D[_G, 2 * _T + 1],
-                     D[_G + 8, 2 * _T], D[_G + 8, 2 * _T + 1]], axis=1)
-
-
-def _spread_planes(x: np.ndarray) -> np.ndarray:
-    """B1's A word of a packed byte: byte p is plane p's code."""
-    x = x.astype(np.uint32)
-    return (x & 0x03) | ((x & 0x0C) << 6) | ((x & 0x30) << 12) | \
-        ((x & 0xC0) << 18)
-
-
-def _words(b: np.ndarray) -> np.ndarray:
-    """Four int8/uint8 planes [4, ...] -> one uint32 word each, plane k in
-    byte k (what ``transpose4`` writes)."""
-    u = b.astype(np.uint8).astype(np.uint32)
-    return u[0] | (u[1] << 8) | (u[2] << 16) | (u[3] << 24)
-
-
-def _pad(a: np.ndarray, axis: int, mult: int) -> np.ndarray:
-    widths = [(0, 0)] * a.ndim
-    widths[axis] = (0, -a.shape[axis] % mult)
-    return np.pad(a, widths)
+# The kernels' fragment maps (the mma itself is emulated in test_torch_mma).
 
 
 def _fwd_by_fragments(packed: np.ndarray, d4: np.ndarray) -> np.ndarray:

@@ -5,7 +5,8 @@ Tolerance: none — bit-equal.  Every output is an exact integer (each
 product is at most 2 * 64 = 128 and the sums stay far below 2^24), so the
 Pallas kernel ``indicator_dot`` in interpret mode, the ``"xla"`` route of
 ``score_packed._packed_phase1``, the port's plain version and its CUDA
-kernel must agree to the last bit.  Ragged B and N, all four code values,
+kernel must agree to the last bit, and so must the numpy emulation of the
+kernel's ``mma.sync`` fragments.  Ragged B and N, all four code values,
 C = 128 and 256.  The card-only case:
 ``python -m pytest --noconftest -m cuda tests/test_torch_indicator_dot.py``.
 """
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_mma import _indicators_by_fragments, _pad, _words
 from _torch_synth import jax_null_model, synth_codes, synth_pheno, \
     var_ratio_table
 from saigegds_tpu_torch.models.nullmodel import NullModel
@@ -132,14 +134,38 @@ def test_wrapper_rejects(bad):
         score_kernel.indicator_dot(codes, vs)
 
 
+@pytest.mark.parametrize("shape", [(37, 1031, 128), (5, 130, 256),
+                                   (16, 1026, 128), (17, 1024, 128)])
+def test_fragment_contraction_matches_plain(shape):
+    """The kernel's operand words (four code bytes of a row as they lie in
+    memory against four transposed slice rows, k the sample), split into
+    the three indicators and contracted fragment by fragment in int32,
+    equal the plain version exactly: ragged B, N % 4 = 3, 2, 2 and 0."""
+    B, N, C = shape
+    codes, vs = _operands(B, N, C, seed=B * N)
+    assert set(np.unique(codes)) == {0, 1, 2, 3}
+    cq = _pad(_pad(codes, 0, 16), 1, 32)
+    aw = _words(np.moveaxis(cq.reshape(cq.shape[0], -1, 4), -1, 0))
+    vq = _pad(vs, 0, 32)
+    bw = _words(vq.reshape(-1, 4, C).transpose(1, 0, 2))      # [Q, C]
+    got = _indicators_by_fragments(aw, bw)[:B]
+    want = score_kernel.indicator_dot_plain(torch.from_numpy(codes),
+                                            torch.from_numpy(vs))
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(37, 1031, 128), (5, 1031, 256),
                                    (256, 65537, 128)])
 def test_kernel_matches_plain_on_card(shape):
     """The hand-written CUDA kernel against its plain version, on the card
     (ragged shapes: B and N off every tile size, N not a multiple of 4)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _need_card()
     codes, vs = _operands(*shape, seed=sum(shape))
     codes, vs = torch.from_numpy(codes).cuda(), torch.from_numpy(vs).cuda()
     before = score_kernel.LAUNCHES["indicator_dot"]
@@ -147,3 +173,43 @@ def test_kernel_matches_plain_on_card(shape):
     torch.cuda.synchronize()
     assert score_kernel.LAUNCHES["indicator_dot"] == before + 1
     assert torch.equal(got, score_kernel.indicator_dot_plain(codes, vs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 1031, 1), (16, 4097, 2),
+                                   (33, 2000, 3), (64, 1028, 1)])
+def test_kernel_takes_any_row_start(shape):
+    """Codes whose rows start off a 4-byte boundary (N % 4 != 0, and the
+    codes a view one to three bytes into their buffer, as a row slice of
+    a decoded batch is) give the plain version's result on the card."""
+    _need_card()
+    B, N, off = shape
+    codes, vs = _operands(B, N, 128, seed=N + off)
+    codes, vs = torch.from_numpy(codes).cuda(), torch.from_numpy(vs).cuda()
+    flat = torch.zeros(codes.numel() + off, dtype=torch.int8, device="cuda")
+    flat[off:] = codes.reshape(-1)
+    view = flat[off:].view(codes.shape)
+    assert view.is_contiguous() and view.data_ptr() % 4 == off
+    got = score_kernel.indicator_dot(view, vs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, score_kernel.indicator_dot_plain(codes, vs))
+
+
+@pytest.mark.cuda
+def test_kernel_exact_at_int32_bound():
+    """Constant codes against slices of 64 at the largest sample count the
+    wrapper takes (N = 2^24 - 1, so rows start at every offset mod 4):
+    every cell is known in closed form, g0 of code 2 being 2 * 64 * N just
+    below 2^31, and must come out exact (s32 sums, no saturation)."""
+    _need_card()
+    N = score_kernel.MAX_SAMPLES - 1
+    assert 2 * 64 * N < 2 ** 31
+    codes = torch.tensor([2, 3, 1, 0, 2], dtype=torch.int8,
+                         device="cuda")[:, None].expand(5, N).contiguous()
+    vs = torch.full((N, 128), 64, dtype=torch.int8, device="cuda")
+    got = score_kernel.indicator_dot(codes, vs)
+    torch.cuda.synchronize()
+    s = 64 * N                           # one indicator over every sample
+    want = torch.tensor([[2 * s, 0, s], [0, s, 0], [s, 0, 0], [0, 0, 0],
+                         [2 * s, 0, s]], dtype=torch.float64, device="cuda")
+    assert torch.equal(got, want[:, :, None].expand(5, 3, 128))

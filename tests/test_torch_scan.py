@@ -195,8 +195,7 @@ def test_int8_route_matches_default(data, scans):
     _assert_tables_match(got, want)
 
 
-@pytest.mark.parametrize("case", ["quantitative", "sample_subset",
-                                  "rds_model", "dosage"])
+@pytest.mark.parametrize("case", ["quantitative", "rds_model", "dosage"])
 def test_unported_options_raise(data, case, tmp_path):
     tmp, gds, X, y = data
     jm = jax_null_model(X, y, var_ratio_table("pooled"))
@@ -204,8 +203,6 @@ def test_unported_options_raise(data, case, tmp_path):
     config = ScanConfig(block_size=BLOCK)
     if case == "quantitative":
         model.trait_type = "quantitative"
-    elif case == "sample_subset":
-        model.sample_id = model.sample_id[::-1].copy()
     elif case == "rds_model":
         model = str(tmp_path / "model.rds")
     else:

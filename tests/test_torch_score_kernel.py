@@ -1,7 +1,8 @@
 """Kernel B3 of the PyTorch port (``saigegds_tpu_torch/ops/score_kernel``)
 against the JAX package's Pallas kernel and its XLA twin.
 
-Tolerance: none — bit-equal.  Every output is an exact integer (each
+Tolerance: none — bit-equal (the numpy emulation of the kernel's
+``mma.sync`` fragments included).  Every output is an exact integer (each
 product is at most 2 * 64 = 128 and the sums stay far below 2^24 at these
 sizes), so the Pallas kernel in interpret mode, the ``xla2`` route, the
 port's plain version and its CUDA kernel must agree to the last bit.  The
@@ -16,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_mma import _indicators_by_fragments, _pad, _spread_planes, \
+    _words
 from _torch_synth import jax_null_model, synth_codes, synth_pheno, \
     var_ratio_table
 from saigegds_tpu_torch.models.nullmodel import NullModel
@@ -149,24 +152,95 @@ def test_pack_codes_2bit_roundtrip(n):
     np.testing.assert_array_equal(unpack_codes_2bit(packed, n), codes)
 
 
+def _random_operands(B: int, N: int, C: int, seed: int):
+    """Random packed bytes (all four codes) [B, ceil(N/4)] and slices
+    [4, ceil(N/4), C] in [-64, 64] with zero rows at padded samples."""
+    rng = np.random.default_rng(seed)
+    n4 = -(-N // 4)
+    packed = rng.integers(0, 256, size=(B, n4), dtype=np.uint8)
+    vs4 = rng.integers(-64, 65, size=(4, n4, C), dtype=np.int8)
+    vs4.reshape(-1, C)[N:] = 0
+    return packed, vs4
+
+
+@pytest.mark.parametrize("shape", [(37, 1031, 128), (5, 130, 256),
+                                   (16, 1024, 128)])
+def test_fragment_contraction_matches_plain(shape):
+    """The kernel's operand words (spread planes against transposed slice
+    bytes, k ordered (byte column, plane)), split into the three indicators
+    and contracted fragment by fragment in int32, equal the plain version
+    exactly: ragged B, N4 = 258 and 33 (not multiples of 4) and 256."""
+    B, N, C = shape
+    packed, vs4 = _random_operands(B, N, C, seed=B + N)
+    codes = np.stack([(packed >> (2 * p)) & 3 for p in range(4)])
+    assert set(np.unique(codes)) == {0, 1, 2, 3}
+    aw = _spread_planes(_pad(_pad(packed, 0, 16), 1, 8))    # [Bp, N4p]
+    bw = _words(_pad(vs4, 1, 8))                            # [N4p, C]
+    got = _indicators_by_fragments(aw, bw)[:B]
+    want = score_kernel.indicator_dot_2bit_plain(torch.from_numpy(packed),
+                                                 torch.from_numpy(vs4))
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(37, 1031), (1024, 65537)])
 def test_kernel_matches_plain_on_card(shape):
     """The hand-written CUDA kernel against its plain version, on the card
     (ragged shapes: B and N off every tile size)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _need_card()
     B, N = shape
-    rng = np.random.default_rng(B)
-    n4 = -(-N // 4)
-    packed = torch.from_numpy(rng.integers(0, 256, size=(B, n4),
-                                           dtype=np.uint8)).cuda()
-    vs4 = rng.integers(-64, 65, size=(4, n4, 128), dtype=np.int8)
-    vs4.reshape(-1, 128)[N:] = 0                  # padded samples
-    vs4 = torch.from_numpy(vs4).cuda()
+    packed, vs4 = (torch.from_numpy(a).cuda()
+                   for a in _random_operands(B, N, 128, seed=B))
     before = score_kernel.LAUNCHES["indicator_dot_2bit"]
     got = score_kernel.indicator_dot_2bit(packed, vs4)
     torch.cuda.synchronize()
     assert score_kernel.LAUNCHES["indicator_dot_2bit"] == before + 1
     want = score_kernel.indicator_dot_2bit_plain(packed, vs4)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 1031, 1), (16, 4097, 2),
+                                   (33, 2000, 3), (64, 1029, 0)])
+def test_kernel_takes_any_row_start(shape):
+    """Rows that start off a 4-byte boundary (N4 % 4 != 0, and the payload
+    a view one to three bytes into its buffer) give the plain version's
+    result on the card."""
+    _need_card()
+    B, N, off = shape
+    packed, vs4 = (torch.from_numpy(a).cuda()
+                   for a in _random_operands(B, N, 128, seed=N + off))
+    flat = torch.zeros(packed.numel() + off, dtype=torch.uint8,
+                       device="cuda")
+    flat[off:] = packed.reshape(-1)
+    view = flat[off:].view(packed.shape)
+    assert view.is_contiguous() and view.data_ptr() % 4 == off
+    got = score_kernel.indicator_dot_2bit(view, vs4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, score_kernel.indicator_dot_2bit_plain(packed,
+                                                                  vs4))
+
+
+@pytest.mark.cuda
+def test_kernel_exact_at_int32_bound():
+    """Constant codes against slices of 64 at the largest byte-column count
+    the wrapper takes (4 * N4 just under 2^24, N4 % 4 == 3): every cell is
+    known in closed form, g0 of code 2 being 2 * 64 * 4 * N4 just below
+    2^31, and must come out exact (s32 sums, no saturation)."""
+    _need_card()
+    n4 = score_kernel.MAX_SAMPLES // 4 - 1
+    assert n4 % 4 == 3 and 2 * 64 * 4 * n4 < 2 ** 31
+    packed = torch.tensor([0xAA, 0xFF, 0x55, 0x00], dtype=torch.uint8,
+                          device="cuda")[:, None].expand(4, n4).contiguous()
+    vs4 = torch.full((4, n4, 128), 64, dtype=torch.int8, device="cuda")
+    got = score_kernel.indicator_dot_2bit(packed, vs4)
+    torch.cuda.synchronize()
+    s = 64 * 4 * n4                      # one indicator over every sample
+    want = torch.tensor([[2 * s, 0, s], [0, s, 0], [s, 0, 0], [0, 0, 0]],
+                        dtype=torch.float64, device="cuda")
+    assert torch.equal(got, want[:, :, None].expand(4, 3, 128))
