@@ -22,8 +22,14 @@ and prints no result line):
    each beside ``torch._int_mm`` (cuBLAS int8 GEMM) on the indicators
    decoded beforehand, a contraction-only yardstick the port never calls;
    B5
-   (``decode_codes``) on a ragged stream full of escapes and empty rows and
-   on rare-variant streams of 256 and 2,048 rows x N = 430,000.  Every time
+   (``decode_codes``: a stream scan that writes a table of where each
+   16 KiB output tile's entries start, then one block per tile that
+   replays them and stores the tile whole) on a ragged stream full of
+   escapes and empty rows and on rare-variant streams of 256 and 2,048
+   rows x N = 430,000 (1% of them ALT-major, an entry per sample; the
+   count of dense rows is printed), beside ``torch.zeros`` of its output
+   (the zero-fill yardstick), and each of its two stages against its own
+   plain version, with its own time.  Every time
    is the median of several runs timed with CUDA events, printed beside the
    plain version's and the bound (the larger of the bytes the function must
    move at 3.35 TB/s and its int8 operations at 1,979 TOP/s), with the
@@ -162,7 +168,7 @@ def bound(nbytes: float, ops: float) -> dict:
     at the device memory rate and the int8 operations at the tensor-core
     peak (H100 SXM at 700 W); ``ops`` is kept for the achieved rate."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT8_OPS_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops), ops=ops,
+    return dict(bound_ms=max(t_bytes, t_ops), ops=ops, bytes=nbytes,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -185,11 +191,13 @@ def compare_and_time(label: str, kern, plain, runs: int, least: dict,
     k2 = median_ms(kern, runs)
     p2 = median_ms(plain, plain_runs)
     ms, plain_ms = float(np.median([k1, k2])), float(np.median([p1, p2]))
+    rate = f"{least['ops'] / ms * 1e3:.3e} int8 op/s" if least["ops"] else \
+        f"{least['bytes'] / ms / 1e6:.1f} GB/s of needed bytes"
     log(f"{label}: bit-equal to the plain version; kernel {ms:.3f} ms "
         f"(runs {k1:.3f}, {k2:.3f}), plain {plain_ms:.3f} ms (runs "
         f"{p1:.3f}, {p2:.3f}), bound {least['bound_ms']:.4f} ms "
-        f"({least['bound_by']}); {least['ops'] / ms * 1e3:.3e} int8 op/s, "
-        f"{least['bound_ms'] / ms:.1%} of the bound")
+        f"({least['bound_by']}); {rate}, {least['bound_ms'] / ms:.1%} of "
+        f"the bound")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least)
 
 
@@ -315,20 +323,87 @@ def check_b4(B: int, N: int, device, gen) -> dict:
 
 def check_b5(codes: np.ndarray, device) -> dict:
     """B5 on the card vs its plain version and the codes that were
-    encoded."""
+    encoded, beside the zero-fill ``torch.zeros`` of its output (the
+    yardstick: what any decode that writes the whole output pays); then
+    each of its two stages (the tile table, the tile replay) vs its own
+    plain version, with its own time and bound."""
     import torch
-    from saigegds_tpu_torch.ops import sparse_codes
+    from saigegds_tpu_torch.ops import sparse_codes as sc
 
     B, N = codes.shape
-    entries, row_ptr = sparse_codes.encode_sparse_rows(codes)
+    entries, row_ptr = sc.encode_sparse_rows(codes)
     e = torch.from_numpy(entries).to(device)
     rp = torch.from_numpy(row_ptr).to(device)
-    return compare_and_time(
-        f"B5 {B} rows x N={N}, {len(entries)} entries",
-        lambda: sparse_codes.decode_codes(e, rp, B, N),
-        lambda: sparse_codes.decode_codes_plain(e, rp, B, N), 10,
+    dense = int(np.sum(np.count_nonzero(codes, axis=1)
+                       > N * sc.SPARSE_NNZ_FRAC))
+    label = f"B5 {B} rows x N={N}, {len(entries)} entries, {dense} dense rows"
+    res = compare_and_time(
+        label, lambda: sc.decode_codes(e, rp, B, N),
+        lambda: sc.decode_codes_plain(e, rp, B, N), 10,
         bound(B * N + 2 * len(entries) + 4 * (B + 1), 0),
         exact=torch.from_numpy(codes).to(device))
+    res["library_ms"] = median_ms(
+        lambda: torch.zeros(B, N, dtype=torch.int8, device=device), 10)
+    log(f"{label}: torch.zeros of the output (yardstick, the zero-fill "
+        f"alone) {res['library_ms']:.3f} ms")
+    tiles = -(-(B * N) // sc.TILE)
+    s0, end = int(row_ptr[0]), int(row_ptr[-1])
+
+    def stage1(fn):
+        """The table and the words of [s0, end), as one int64 tensor."""
+        table, words = fn(e, rp, B, N)
+        return torch.cat([table, words[s0:end].to(torch.int64)])
+
+    if not torch.equal(stage1(sc.tile_table), stage1(sc.tile_table_plain)):
+        raise AssertionError(f"{label}: stage 1 disagrees with its plain "
+                             "version")
+    least = bound(4 * len(entries) + 4 * (B + 1) + 8 * (tiles + 1), 0)
+    ms = float(np.median([median_ms(lambda: sc.tile_table(e, rp, B, N), 10)
+                          for _ in range(2)]))
+    log(f"  B5 stage 1, tile table ({tiles + 1} rows) and words: bit-equal "
+        f"to the plain version; kernel {ms:.3f} ms, bound "
+        f"{least['bound_ms']:.4f} ms (bytes)")
+    table, words = sc.tile_table(e, rp, B, N)
+    compare_and_time(
+        f"  B5 stage 2, tile replay ({tiles} tiles)",
+        lambda: sc.replay_tiles(table, words, B, N),
+        lambda: sc.replay_tiles_plain(table, words, B, N), 10,
+        bound(B * N + 2 * len(entries) + 8 * (tiles + 1), 0))
+    runs = 5
+    by_name = device_ms_by_kernel(lambda: sc.decode_codes(e, rp, B, N), runs)
+    if by_name:
+        log(f"  B5 device time per decode (torch.profiler, mean of {runs}): "
+            + ", ".join(f"{kernel_name(k)} {v:.4f} ms"
+                        for k, v in by_name.items())
+            + f"; sum {sum(by_name.values()):.4f} ms")
+    else:
+        log("  B5 device time per decode: not measured (the profiler "
+            "recorded no device events)")
+    return res
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key without its namespace and arguments."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0].strip()
+
+
+def device_ms_by_kernel(fn, runs: int = 1) -> dict:
+    """Device time of each kernel that ``runs`` calls of ``fn`` launch,
+    by name, in ms per call (``torch.profiler``); empty when the profiler
+    records no device events."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0.0)
+        if t and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + t / 1e3 / runs
+    return by_name
 
 
 def ragged_stream_codes(seed: int) -> np.ndarray:
@@ -502,16 +577,7 @@ def profile_product(device, gen) -> dict:
                     generator=gen)
     grm.matvec(b)
     ms = median_ms(lambda: grm.matvec(b), 3)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        grm.matvec(b)
-        torch.cuda.synchronize()
-    by_name = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", 0.0)
-        if t and ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + t / 1e3
+    by_name = device_ms_by_kernel(lambda: grm.matvec(b))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f"GRM product at R = {PROFILE_COLS} over a random store of {M} "
         f"variants x {N} samples, {nnz} missing pairs: {ms:.3f} ms (median "
