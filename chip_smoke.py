@@ -17,7 +17,9 @@ and prints no result line):
    (``plane_dot_t``) at two ragged shapes (37 and 129 variants x 1,031
    samples, C = 128 and 256) and at the fit's (M = 16,384 GRM variants,
    N = 430,000, C = 128 and 256), each over a store of the GRM store's
-   width; B4 (``indicator_dot``, int8 codes) at the aggregate
+   width, at C = 128 each beside ``torch._int_mm`` on the store decoded
+   beforehand (B1: against the slices; B2: the decoded store's transpose
+   against its operand), a contraction-only yardstick; B4 (``indicator_dot``, int8 codes) at the aggregate
    tests' single-variant batch (B = 256, N = 430,000, C = 128), B3 and B4
    each beside ``torch._int_mm`` (cuBLAS int8 GEMM) on the indicators
    decoded beforehand, a contraction-only yardstick the port never calls;
@@ -46,7 +48,14 @@ and prints no result line):
    variants at full N (31 columns) on the card and on the CPU, within
    1e-12 relative; a small fit (2,000 samples x 1,000 variants) on both,
    within 1e-8 relative with the same iteration counts;
-6. the scan from the fitted model at N = 430,000: a GDS of 4,096 variants
+6. the quantitative fit at full width, on phase 4's GDS: a phenotype from
+   the same genetic values and covariates, heritability 0.4, with a
+   log-normal noise (``make_fit_data``'s ``yq``), fitted with
+   ``trait_type="quantitative"`` and the default inverse-normal transform;
+   it must converge with tau_E > 0, tau_G > 0 and finite variance ratios,
+   B1 and B2 launching once per GRM product; then the small fit's
+   quantitative trait on the card and on the CPU (1e-8, same iterations);
+7. the scan from the fitted model at N = 430,000: a GDS of 4,096 variants
    (a MAF spectrum with rare variants, 0.5% missing, 16 variants enriched
    in the fit's cases) over the model's samples and 16 more that the model
    lacks, at shuffled positions, so that every block is gathered to the
@@ -56,7 +65,10 @@ and prints no result line):
    again on the CPU, whose table must agree with the card's within 1e-10
    relative, and on the card through the int8 route
    (``packed_2bit=False``, one B4 launch), held to the CPU's table too;
-7. the aggregate tests from the fitted model at N = 430,000: a GDS of
+8. the same scan from the quantitative model: B3 once per block, no
+   variant through SPA, no ``p.norm`` or ``converged`` column, the first
+   block on the CPU (1e-10) and through the int8 route (one B4 launch);
+9. the aggregate tests from the fitted model at N = 430,000: a GDS of
    16,384 variants with an exome's MAF spectrum (50% ultra-rare with 1-9
    minor alleles, 40% rare, 10% low-frequency, 0.5% missing), 512 gene
    units of 8-64 contiguous variants (8 of them enriched in the fit's
@@ -67,7 +79,12 @@ and prints no result line):
    payload; ``assoc_burden`` and ``assoc_acat_v`` on the card over the
    first 64 units equal ACAT-O's burden and ACAT-V columns within 1e-12;
    the first 32 units on the CPU agree with the card within 1e-10 relative
-   on every p-value column, with the same NaN pattern.
+   on every p-value column, with the same NaN pattern;
+10. ``assoc_burden`` of the quantitative model over phase 9's GDS and
+   units: B5 once per sparse payload and no other kernel, no row through
+   SPA, every p-value in [0, 1], the first 32 units on the CPU within
+   1e-10 relative with the same NaN pattern; ``assoc_acat_o`` on the
+   quantitative model raises NotImplementedError.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Data is made from a fixed seed; the
@@ -106,6 +123,8 @@ PROFILE_COLS = 30       # columns of the profiled full-width GRM product
 RTOL_MV = 1e-12         # card vs CPU GRM product (f64 atomics reorder)
 RTOL_FIT = 1e-8         # card vs CPU small fit
 FORMULA = "y ~ x1 + x2 + x3"
+FORMULA_Q = "yq ~ x1 + x2 + x3"   # the quantitative phenotype of the fit data
+H2_Q = 0.4              # its heritability
 SOURCES = ["indicator_dot_2bit", "plane_dot", "indicator_dot", "decode_codes"]
 B4_SHAPES = [(37, 1031), (256, N_SAMPLES)]     # B, N at C = 128
 B5_ROWS = (256, 2048)   # rare-variant streams at N = N_SAMPLES
@@ -160,6 +179,7 @@ def expect_launches(what: str, want: dict):
     bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
     if bad:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
+    log(f"{what}: kernel launches {json.dumps(got)}")
     return got
 
 
@@ -201,39 +221,76 @@ def compare_and_time(label: str, kern, plain, runs: int, least: dict,
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **least)
 
 
+def int_mm_best(label: str, what: str, lhs, rhs, same, runs: int):
+    """Median ms of ``torch._int_mm(lhs, rhs)`` (cuBLAS int8 GEMM) with the
+    right-hand operand row- and column-major (the copy outside the time);
+    the faster counts.  ``same(result)`` holds each result against the
+    kernel's.  None, with the reason printed, when ``_int_mm`` refuses the
+    shapes."""
+    import torch
+    times = {}
+    for layout, r in (("row-major", rhs),
+                      ("column-major", rhs.t().contiguous().t())):
+        try:
+            got = torch._int_mm(lhs, r)
+        except RuntimeError as e:
+            log(f"{label}: torch._int_mm refused the shapes "
+                f"{tuple(lhs.shape)} x {tuple(r.shape)} {layout} "
+                f"({str(e).splitlines()[0]})")
+            continue
+        ok = same(got)
+        del got
+        times[layout] = median_ms(lambda: torch._int_mm(lhs, r), runs)
+        log(f"{label}: torch._int_mm (cuBLAS int8 GEMM, contraction only, "
+            f"{what}), right operand {layout}: {times[layout]:.3f} ms, "
+            f"{'equal to' if ok else 'DIFFERENT from'} the kernel's result")
+    return min(times.values()) if times else None
+
+
 def int_mm_ms(label: str, codes, vs, kern_out, runs: int = 10):
-    """The yardstick of B3 and B4: ``torch._int_mm`` (cuBLAS int8 GEMM) on
-    the same contraction, contraction only: the indicators of ``codes``
-    (int [B, N] in the slices' sample order) are decoded into int8
-    [3B, N] beforehand, outside the time, and the slices are given row-
-    and column-major (the copy outside the time too); the faster counts.
-    Each result is held against the kernel's ``kern_out`` (f64
-    [B, 3, C]).  None, with the reason printed, when ``_int_mm`` refuses
-    the shapes."""
+    """The yardstick of B3 and B4: ``torch._int_mm`` on the same
+    contraction, contraction only: the indicators of ``codes`` (int
+    [B, N] in the slices' sample order) are decoded into int8 [3B, N]
+    beforehand, outside the time.  Held against the kernel's ``kern_out``
+    (f64 [B, 3, C])."""
     import torch
     c = codes.to(torch.int8)
     ind = torch.cat([torch.where(c == 3, 0, c), (c == 3).to(torch.int8),
                      (c == 2).to(torch.int8)])
     del c
     B = codes.shape[0]
-    times = {}
-    for layout, rhs in (("row-major", vs),
-                        ("column-major", vs.t().contiguous().t())):
-        try:
-            got = torch._int_mm(ind, rhs)
-        except RuntimeError as e:
-            log(f"{label}: torch._int_mm refused the shapes "
-                f"{tuple(ind.shape)} x {tuple(rhs.shape)} {layout} "
-                f"({str(e).splitlines()[0]})")
-            continue
-        same = torch.equal(got.view(3, B, -1).transpose(0, 1).double(),
-                           kern_out)
-        times[layout] = median_ms(lambda: torch._int_mm(ind, rhs), runs)
-        log(f"{label}: torch._int_mm (cuBLAS int8 GEMM, contraction only, "
-            f"the indicators decoded beforehand), slices {layout}: "
-            f"{times[layout]:.3f} ms, "
-            f"{'equal to' if same else 'DIFFERENT from'} the kernel's result")
-    return min(times.values()) if times else None
+    return int_mm_best(
+        label, "the indicators decoded beforehand", ind, vs,
+        lambda got: torch.equal(got.view(3, B, -1).transpose(0, 1).double(),
+                                kern_out), runs)
+
+
+def grm_int_mm_ms(label: str, packed, d4, dm, out_fwd, out_t,
+                  runs: int = 5) -> dict:
+    """The yardstick of B1 and B2: ``torch._int_mm`` on the store decoded
+    beforehand (outside the time) into int8 [M, 4 N4], plane p in columns
+    p N4 .. p N4 + N4 - 1: against d4 as [4 N4, C] for B1, and the decoded
+    store's transpose (made contiguous outside the time) against dm for
+    B2; contraction only.  Held against the kernels' outputs."""
+    import torch
+    M, n4 = packed.shape
+    C = d4.shape[2]
+    D = torch.empty(M, 4 * n4, dtype=torch.int8, device=packed.device)
+    for p in range(4):
+        D[:, p * n4:(p + 1) * n4] = ((packed >> (2 * p)) & 3).view(
+            torch.int8)
+    what = "the store decoded beforehand"
+    out = {"plane_dot_fwd": int_mm_best(
+        f"{label} B1", what, D, d4.view(4 * n4, C),
+        lambda got: torch.equal(got.double(), out_fwd), runs)}
+    Dt = D.t().contiguous()
+    del D
+    out["plane_dot_t"] = int_mm_best(
+        f"{label} B2", what + ", transposed", Dt, dm,
+        lambda got: torch.equal(got.double().view(4, n4, C), out_t), runs)
+    del Dt
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_kernel(B: int, N: int, device, gen) -> dict:
@@ -274,10 +331,12 @@ def random_store(M: int, N: int, device, gen):
     return x & ~(m3 | (m3 << 1))
 
 
-def check_grm(M: int, N: int, C: int, device, gen) -> dict:
+def check_grm(M: int, N: int, C: int, device, gen,
+              library: bool = False) -> dict:
     """B1 and B2 on the card vs their plain versions on the same tensors:
     a random store of the GRM store's width, slices in [-64, 64] with zero
-    rows at padded samples."""
+    rows at padded samples; with ``library``, each beside its
+    ``torch._int_mm`` yardstick (`grm_int_mm_ms`)."""
     import torch
     from saigegds_tpu_torch.ops import grm_kernel
 
@@ -298,6 +357,13 @@ def check_grm(M: int, N: int, C: int, device, gen) -> dict:
             f"{name} M={M} N={N} C={C}", lambda: kern(packed, rhs),
             lambda: plain(packed, rhs), 5,
             bound(packed.numel() + rhs.numel() + out_bytes, ops))
+    if library:
+        from saigegds_tpu_torch.ops import grm_kernel as gk
+        lib = grm_int_mm_ms(f"M={M} N={N} C={C}", packed, d4, dm,
+                            gk.plane_dot_fwd(packed, d4),
+                            gk.plane_dot_t(packed, dm))
+        for name, ms in lib.items():
+            out[name]["library_ms"] = ms
     return out
 
 
@@ -517,11 +583,14 @@ def with_extra_samples(codes: np.ndarray, sample_id: np.ndarray,
 
 
 def make_fit_data(n_samples: int, n_variants: int, device, seed: int):
-    """(int8 codes [M, N], data dict) of a polygenic binary trait, as
+    """(int8 codes [M, N], data dict) of a polygenic binary trait ``y``, as
     bench.py's fit data: allele frequencies uniform in 0.05-0.5, effects
     giving a genetic variance of 0.6 on the logit scale, three covariates
     plus the intercept; genotypes drawn on ``device`` in chunks, then 0.5%
-    set missing."""
+    set missing.  The column ``yq`` is a quantitative trait from the same
+    genetic values and covariates, heritability H2_Q, with a right-skewed
+    noise (log-normal, as for BMI), drawn after ``y`` from the same
+    stream, so that ``y`` is the same with or without it."""
     import torch
     rng = np.random.default_rng(seed)
     af = rng.uniform(0.05, 0.5, n_variants)
@@ -547,10 +616,13 @@ def make_fit_data(n_samples: int, n_variants: int, device, seed: int):
             beta[s:e], device=device)
         g[torch.rand(shape, generator=gen, device=device) < MISS_RATE] = 3
         codes[s:e] = g.cpu().numpy()
-    eta = X @ alpha - 1.5 + g_eff.cpu().numpy()
+    g = g_eff.cpu().numpy()
+    eta = X @ alpha - 1.5 + g
     y = (rng.random(n_samples) < 1 / (1 + np.exp(-eta))).astype(np.float64)
+    e = np.exp(rng.normal(size=n_samples) * 0.6)
+    e = (e - e.mean()) / e.std() * np.sqrt(g.var() * (1 - H2_Q) / H2_Q)
     data = {"sample.id": np.arange(1, n_samples + 1, dtype=np.int32),
-            "y": y}
+            "y": y, "yq": X @ alpha + g + e}
     data.update({f"x{i}": X[:, i] for i in range(1, N_COV + 1)})
     return codes, data
 
@@ -593,15 +665,17 @@ def profile_product(device, gen) -> dict:
     return dict(ms=ms, kernels=dict(top))
 
 
-def fit(gds: str, data: dict, device: str):
-    """(model, instrument dict) of one fit_null_glmm run; the dict also
-    holds its wall seconds."""
+def fit(gds: str, data: dict, device: str, quant: bool = False):
+    """(model, instrument dict) of one fit_null_glmm run, of the binary
+    trait ``y`` or (``quant``) the quantitative ``yq`` with the default
+    ``inv_norm``; the dict also holds its wall seconds."""
     import torch
     from saigegds_tpu_torch import NullModelConfig, fit_null_glmm
 
     inst = {}
     t0 = time.perf_counter()
-    model = fit_null_glmm(FORMULA, data, gds, NullModelConfig(),
+    cfg = NullModelConfig(trait_type="quantitative" if quant else "binary")
+    model = fit_null_glmm(FORMULA_Q if quant else FORMULA, data, gds, cfg,
                           instrument=inst, device=device)
     if device == "cuda":
         torch.cuda.synchronize()
@@ -615,6 +689,8 @@ def check_fit(model):
         raise AssertionError("the fit did not converge")
     if not model.tau[1] > 0:
         raise AssertionError(f"tau_G = {model.tau[1]} is not positive")
+    if model.trait_type == "quantitative" and not model.tau[0] > 0:
+        raise AssertionError(f"tau_E = {model.tau[0]} is not positive")
     if not (len(ratio) and np.isfinite(ratio).all()
             and np.isfinite(model.coefficients).all()):
         raise AssertionError("variance ratios or coefficients not finite")
@@ -687,7 +763,7 @@ def check_table(tab: dict):
     if not (len(p) and np.all(np.isfinite(p)) and np.all((p >= 0) & (p <= 1))):
         raise AssertionError("p-values outside [0, 1] or not finite")
     for c in ("AF.alt", "beta", "SE", "p.norm"):
-        if np.isnan(tab[c]).any():
+        if c in tab and np.isnan(tab[c]).any():
             raise AssertionError(f"NaN in column {c}")
 
 
@@ -701,10 +777,11 @@ def compare_tables(gpu: dict, cpu: dict) -> float:
         raise AssertionError("the card's table lacks rows of the CPU's")
     for c in ("id", "chr", "pos", "rs.id", "ref", "alt", "AF.alt", "mac",
               "num", "converged"):
-        if not np.array_equal(np.asarray(gpu[c])[sel], np.asarray(cpu[c])):
+        if c in cpu and not np.array_equal(np.asarray(gpu[c])[sel],
+                                           np.asarray(cpu[c])):
             raise AssertionError(f"column {c} differs between card and CPU")
     worst = 0.0
-    for c in ("pval", "p.norm", "beta", "SE"):
+    for c in (c for c in ("pval", "p.norm", "beta", "SE") if c in cpu):
         a, b = gpu[c][sel], cpu[c]
         rel = np.abs(a - b) / np.maximum(np.abs(b), np.finfo(float).tiny)
         worst = max(worst, float(rel.max(initial=0.0)))
@@ -836,6 +913,73 @@ def aggregate(model, y: np.ndarray, work: str) -> dict:
     log(f"first {AGG_CPU} units on the CPU: every p-value column within "
         f"{worst_cpu:.3e} of the card (limit {RTOL}), "
         f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches=counts, wall=wall, gds=gds, units=units)
+
+
+def quant_burden(model, gds: str, units) -> dict:
+    """Phase 10: the burden test of the quantitative model over the
+    aggregate phase's GDS and units on the card (B5 once per sparse
+    payload, no row to SPA), its first units on the CPU, and ACAT-O
+    refusing the model."""
+    import torch
+    from saigegds_tpu_torch import (AggregateConfig, assoc_acat_o,
+                                    assoc_burden, shard_units)
+
+    cfg = AggregateConfig()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    inst = {}
+    t0 = time.perf_counter()
+    tab = assoc_burden(gds, model, units, cfg, instrument=inst,
+                       device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pay = inst["payloads"]
+    counts = expect_launches("the quantitative burden test", {
+        "decode_codes": pay.get("burden_sparse", 0)})
+    if not counts["decode_codes"]:
+        raise AssertionError(f"B5 never launched: payloads {pay}")
+    if inst.get("spa_n") or any(c.startswith(("p.norm", "cvg"))
+                                for c in tab):
+        raise AssertionError("a quantitative burden row went to SPA, or "
+                             "the table has p.norm / cvg columns")
+    pcols = [c for c in tab if c.startswith("pval")]
+    for c in pcols:
+        p = tab[c][np.isfinite(tab[c])]
+        if not (len(p) and np.all((p >= 0) & (p <= 1))):
+            raise AssertionError(f"{c}: no finite p-value, or outside [0, 1]")
+    spans = {k: round(inst.get(k, 0.0), 3)
+             for k in ("fetch_s", "tally_s", "encode_s", "upload_s",
+                       "wait_s")}
+    log(f"quantitative burden on the card: {len(units)} units, {wall:.2f} s "
+        f"wall ({wall * N_UNITS / len(units):.2f} s per {N_UNITS} units); "
+        f"spans {json.dumps(spans)}, device time of phase 1 "
+        f"{inst.get('device_s', 0.0):.3f} s; payloads {json.dumps(pay)}; "
+        f"launches B5 {counts['decode_codes']}, B4 "
+        f"{counts['indicator_dot']}, B3 {counts['indicator_dot_2bit']}; "
+        f"{int(np.isfinite(tab['pval.b1_1']).sum())} finite p, min "
+        f"{np.nanmin(tab['pval.b1_1']):.3e}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    t0 = time.perf_counter()
+    first = shard_units(units, 0, N_UNITS // AGG_CPU)
+    cpu = assoc_burden(gds, model, first, cfg, device="cpu")
+    if not np.array_equal(cpu["numvar"], tab["numvar"][:AGG_CPU]):
+        raise AssertionError("numvar differs between card and CPU")
+    worst = max(max_rel(tab[c][:AGG_CPU], cpu[c], c) for c in pcols)
+    if worst > RTOL:
+        raise AssertionError(f"quantitative burden card vs CPU: relative "
+                             f"error {worst:.3e} > {RTOL}")
+    log(f"first {AGG_CPU} units on the CPU: every p-value column within "
+        f"{worst:.3e} of the card (limit {RTOL}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        assoc_acat_o(gds, model, first, cfg, device="cuda")
+    except NotImplementedError as e:
+        log(f"ACAT-O on the quantitative model raises NotImplementedError "
+            f"({e})")
+    else:
+        raise AssertionError("ACAT-O accepted a quantitative model")
     return dict(launches=counts, wall=wall)
 
 
@@ -870,7 +1014,8 @@ def main() -> int:
     # 3. kernels vs plain versions
     gen = torch.Generator(device=device).manual_seed(SEED)
     checks = [check_kernel(B, N, device, gen) for B, N in KERNEL_SHAPES]
-    grm_checks = [check_grm(M, N, C, device, gen) for M, N, C in GRM_SHAPES]
+    grm_checks = [check_grm(M, N, C, device, gen, library=(i == GRM_MAIN))
+                  for i, (M, N, C) in enumerate(GRM_SHAPES)]
     b4_checks = [check_b4(B, N, device, gen) for B, N in B4_SHAPES]
     rare = make_rare_codes(max(B5_ROWS), N_SAMPLES, SEED + 4)
     b5_checks = [check_b5(ragged_stream_codes(SEED), device)] + \
@@ -927,7 +1072,40 @@ def main() -> int:
             f"{inst_gpu['wall_s']:.1f} s on the card, "
             f"{inst_cpu['wall_s']:.1f} s on the CPU")
 
-        # 6. the scan from the fitted model
+        # 6. the quantitative fit at full width, on the fit phase's GDS
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        model_q, inst_q = fit(gds_fit, data, "cuda", quant=True)
+        fitq_launches = expect_launches("the quantitative fit", {
+            "plane_dot_fwd": inst_q["matvecs"],
+            "plane_dot_t": inst_q["matvecs"]})
+        check_fit(model_q)
+        log(f"quantitative fit on the card: tau {model_q.tau.tolist()}, "
+            f"{inst_q['outer_iterations']} outer iterations, "
+            f"{inst_q['pcg_iterations']} PCG iterations, "
+            f"{inst_q['matvecs']} GRM products, B1 launches "
+            f"{fitq_launches['plane_dot_fwd']}, B2 launches "
+            f"{fitq_launches['plane_dot_t']}; {inst_q['wall_s']:.1f} s wall "
+            f"= ingest {inst_q['ingest_s']:.1f} + AI-REML "
+            f"{inst_q['aireml_s']:.1f} + variance ratio "
+            f"{inst_q['var_ratio_s']:.1f} s "
+            f"({len(model_q.var_ratio['ratio'])} markers, mean ratio "
+            f"{model_q.mean_var_ratio:.4f}); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        m_gpu, inst_gpu = fit(gds_s, data_s, "cuda", quant=True)
+        m_cpu, inst_cpu = fit(gds_s, data_s, "cpu", quant=True)
+        check_fit(m_cpu)
+        worst_fit_q = compare_fits(m_gpu, m_cpu, inst_gpu, inst_cpu)
+        log(f"small quantitative fit ({n_s} x {m_s}): card vs CPU max "
+            f"relative error {worst_fit_q:.3e} (limit {RTOL_FIT}), tau "
+            f"{m_cpu.tau.tolist()}, {inst_cpu['outer_iterations']} outer and "
+            f"{inst_cpu['pcg_iterations']} PCG iterations on both; "
+            f"{inst_gpu['wall_s']:.1f} s on the card, "
+            f"{inst_cpu['wall_s']:.1f} s on the CPU")
+        del m_gpu, m_cpu
+
+        # 7. the scan from the fitted model
         t0 = time.perf_counter()
         codes, sample_id = with_extra_samples(
             make_data(data["y"], N_VARIANTS, device, SEED), data["sample.id"],
@@ -985,8 +1163,46 @@ def main() -> int:
             f"table within {worst_i8:.3e} (limit {RTOL}), {wall_i8:.1f} s")
         del tab, tab_cpu, tab_i8
 
-        # 7. the aggregate tests from the fitted model
+        # 8. the scan from the quantitative model
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        tab, inst, wall = scan(gds, model_q, "cuda")
+        scanq_launches = expect_launches("the quantitative scan",
+                                         {"indicator_dot_2bit": n_blocks})
+        check_table(tab)
+        if inst["spa_n"] or "p.norm" in tab or "converged" in tab:
+            raise AssertionError("a quantitative variant went to SPA, or "
+                                 "the table has p.norm / converged")
+        stages = {k: round(float(np.sum(inst[k])), 3)
+                  for k in ("decode_s", "gather_s", "pack_s", "upload_s",
+                            "dispatch_s", "drain_s")}
+        log(f"quantitative scan on the card: {len(tab['pval'])} of "
+            f"{N_VARIANTS} variants tested, none through SPA, min p "
+            f"{tab['pval'].min():.3e}, {wall:.2f} s wall, "
+            f"{N_VARIANTS / wall:.1f} variants/s, B3 launches "
+            f"{scanq_launches['indicator_dot_2bit']}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"  stage sums (s, stages overlap): {json.dumps(stages)}, "
+            f"spa_s {inst['spa_s']:.3f}")
+        tab_cpu, _, wall_cpu = scan(gds, model_q, "cpu", variant_mask=mask)
+        worst = compare_tables(tab, tab_cpu)
+        log(f"first block on the CPU: {len(tab_cpu['pval'])} rows agree with "
+            f"the card's, max relative error {worst:.3e} (limit {RTOL}), "
+            f"{wall_cpu:.1f} s")
+        reset_launches()
+        tab_i8, _, wall_i8 = scan(gds, model_q, "cuda", variant_mask=mask,
+                                  packed_2bit=False)
+        expect_launches("the quantitative int8 route", {"indicator_dot": 1})
+        worst_i8 = compare_tables(tab_i8, tab_cpu)
+        log(f"first block on the card, int8 route: one B4 launch, the CPU's "
+            f"table within {worst_i8:.3e} (limit {RTOL}), {wall_i8:.1f} s")
+        del tab, tab_cpu, tab_i8
+
+        # 9. the aggregate tests from the fitted model
         agg = aggregate(model, data["y"], work)
+
+        # 10. the burden test of the quantitative model
+        quant_burden(model_q, agg["gds"], agg["units"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -4,11 +4,12 @@ The capabilities of the SAIGEgds R package, rebuilt for one NVIDIA H100:
 PyTorch for the tensor code and hand-written CUDA kernels (``csrc/``) where
 the JAX package had Pallas kernels.  The JAX package ``saigegds_tpu`` stays
 beside it as the reference; this package imports ``torch`` and never
-``jax``.  It fits the binary-trait null GLMM (:func:`fit_null_glmm`), runs
-the binary-trait association scan (:func:`assoc_spa`) and the binary-trait
-aggregate tests (:func:`assoc_burden`, :func:`assoc_acat_v`,
-:func:`assoc_acat_o`); quantitative traits and the other tests are still
-to be ported (ROADMAP Queue A).
+``jax``.  It fits the null GLMM of a binary or a quantitative trait
+(:func:`fit_null_glmm`), runs the association scan (:func:`assoc_spa`) and
+the burden test (:func:`assoc_burden`) for both, and ACAT-V and ACAT-O
+(:func:`assoc_acat_v`, :func:`assoc_acat_o`) for a binary trait, as the
+reference does; the other entry points are still to be ported (ROADMAP
+Queue A).
 
 The reference contract is float64 throughout: every statistic is made as
 a float64 tensor explicitly (the global default dtype is left alone), and

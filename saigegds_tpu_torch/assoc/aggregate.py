@@ -1,7 +1,8 @@
 """Aggregate (gene/region/set) association tests: burden, ACAT-V, ACAT-O.
 
-The counterpart of ``saigegds_tpu/assoc/aggregate.py`` for a binary trait
-over a GDS genotype node: ``seqAssocGLMM_spaBurden`` / ``spaACAT_V`` /
+The counterpart of ``saigegds_tpu/assoc/aggregate.py`` over a GDS genotype
+node (the burden test for a binary or a quantitative trait, ACAT-V and
+ACAT-O for a binary one): ``seqAssocGLMM_spaBurden`` / ``spaACAT_V`` /
 ``spaACAT_O`` (reference ``R/assoc_aggregate.r``; C engines
 src/saige_main.cpp:465-985).  Each unit's SNP codes are reduced to test
 vectors — weighted burden collapses, and single SNPs for ACAT-V — that run
@@ -51,7 +52,7 @@ from ..ops.acat import beta_weights
 from ..ops.score import ScanModel, ScanParams, spa_refine_binary, \
     stack_stats, unstack_stats
 from ..ops.score_packed import BURDEN_S_CAP, burden_score_packed, \
-    pack_scan_model, score_stats_binary_packed
+    pack_scan_model, score_stats_binary_packed, score_stats_quant_packed
 from ..ops.sparse_codes import encode_sparse_rows
 from ..utils.stats import acat_p
 from .single import DEPTH, SPA_FLUSH_BYTES, _match_samples, _not_ported, \
@@ -341,7 +342,9 @@ class _SpaAccum:
 
 @dataclass
 class _Kernel:
-    """Streaming batched score+SPA runner over test-vector rows.
+    """Streaming batched score+SPA runner over test-vector rows, with the
+    binary or (``binary=False``) the quantitative score test; a
+    quantitative trait sends no row to SPA.
 
     ``inst`` collects host seconds by stage (``fetch_s``, ``tally_s``,
     ``encode_s``, ``upload_s``, ``wait_s`` blocked on device results,
@@ -353,6 +356,7 @@ class _Kernel:
     scan_model: ScanModel
     params: ScanParams
     device: torch.device
+    binary: bool
     batch: int = 256
     inst: dict = field(default_factory=dict)
     _pm: object = None
@@ -408,6 +412,8 @@ class _Kernel:
         window = deque()
         buf, buf_n, row0 = [], 0, 0
         pm = self._packed()
+        phase1 = score_stats_binary_packed if self.binary \
+            else score_stats_quant_packed
 
         def _drain():
             start, G, res_parts = window.popleft()
@@ -421,7 +427,7 @@ class _Kernel:
                     f[k][rows] = getattr(res, k)
             for k in parts:
                 parts[k].append(f[k])
-            if need.any():                   # phase 2 runs on f64 dosages
+            if self.binary and need.any():   # phase 2 runs on f64 dosages
                 Gf = G[need]
                 acc.add(start + np.flatnonzero(need),
                         np.where(Gf == 3, np.nan, Gf).astype(np.float64))
@@ -436,7 +442,7 @@ class _Kernel:
                             else "single_2bit")
                 dev = self._upload(payload)
                 res, ev = self._timed(lambda: stack_stats(
-                    score_stats_binary_packed(pm, self.params, dev)))
+                    phase1(pm, self.params, dev)))
                 res_parts.append((rows, res, ev))
             window.append((start, G, res_parts))
             if len(window) >= DEPTH:
@@ -499,7 +505,7 @@ class _Kernel:
             self._count("burden_sparse" if sparse else "burden_2bit")
             dev = self._upload((payload, A, Bm, C))
             res, ev = self._timed(lambda: stack_stats(burden_score_packed(
-                self.scan_model, self.params, *dev)))
+                self.scan_model, self.params, *dev, binary=self.binary)))
             window.append((start, batch, res, ev))
             if len(window) >= DEPTH:
                 _drain()
@@ -509,7 +515,7 @@ class _Kernel:
             res = unstack_stats(self._readback(stacked, ev))
             for k in parts:
                 parts[k].append(getattr(res, k))
-            if res.need_spa.any():
+            if self.binary and res.need_spa.any():
                 # rebuild flagged rows host-side (few: ~spa_pval fraction)
                 offs = np.cumsum([0] + [len(j.A) for j in batch])
                 need = np.flatnonzero(res.need_spa)
@@ -561,9 +567,6 @@ def _prepare(gdsfile, modobj, config: AggregateConfig, device):
     dev = check_device(device)
     model = NullModel.load(modobj)
     seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
-    if model.trait_type != "binary":
-        raise _not_ported("an aggregate test of a quantitative trait",
-                          "item 2")
     if config.dsnode or not seq.has_genotype():
         raise _not_ported("an aggregate test of DS/dosage nodes", "item 8")
     # sample alignment like the scan (R/assoc_single.r:136-142)
@@ -574,6 +577,7 @@ def _prepare(gdsfile, modobj, config: AggregateConfig, device):
                         spa_pval=config.spa_pval)
     inst = {}
     kernel = _Kernel(scan_model=scan_model, params=params, device=dev,
+                     binary=model.trait_type == "binary",
                      batch=config.block_size, inst=inst)
     wbeta = np.asarray(config.wbeta, dtype=np.float64)  # [W, 2]
     wnames = [f"{b1:g}_{b2:g}" for b1, b2 in wbeta]
@@ -606,8 +610,9 @@ def assoc_burden(gdsfile, modobj, units: VariantUnits,
                  res_savefn: str = "", verbose: bool = False,
                  res_compress: str = "LZMA", instrument=None, *,
                  device) -> dict:
-    """Burden tests over variant units (seqAssocGLMM_spaBurden), binary
-    trait, on ``device``.
+    """Burden tests over variant units (seqAssocGLMM_spaBurden), binary or
+    quantitative trait, on ``device``; a quantitative trait's table has no
+    ``p.norm`` or ``cvg`` columns.
 
     Streams one unit at a time — host memory is bounded by the device
     batch, not by [units x samples].  ``instrument``: optional dict that
@@ -647,8 +652,9 @@ def assoc_burden(gdsfile, modobj, units: VariantUnits,
         tab[f"beta{s}"] = out["beta"][sel]
         tab[f"SE{s}"] = out["se"][sel]
         tab[f"pval{s}"] = out["pval"][sel]
-        tab[f"p.norm{s}"] = out["p.norm"][sel]
-        tab[f"cvg{s}"] = out["converged"][sel]
+        if kernel.binary:
+            tab[f"p.norm{s}"] = out["p.norm"][sel]
+            tab[f"cvg{s}"] = out["converged"][sel]
     return _finish(tab, kernel, instrument, res_savefn, res_compress)
 
 
@@ -801,6 +807,10 @@ def assoc_acat_v(gdsfile, modobj, units: VariantUnits,
     """ACAT-V tests over variant units (seqAssocGLMM_spaACAT_V, binary
     only), on ``device``."""
     kernel, wbeta, wnames, src = _prepare(gdsfile, modobj, config, device)
+    if not kernel.binary:
+        raise NotImplementedError(
+            "ACAT-V is binary-only, like the reference "
+            "(src/saige_main.cpp:836-842)")
     runner = _AcatVRunner(kernel, wbeta, config, src)
     results, _full = runner.run(units)
     rows = [results[uid] for uid in range(len(units))]
@@ -827,6 +837,8 @@ def assoc_acat_o(gdsfile, modobj, units: VariantUnits,
     Cauchy combination of the burden and ACAT-V p-values across weight
     schemes."""
     kernel, wbeta, wnames, src = _prepare(gdsfile, modobj, config, device)
+    if not kernel.binary:
+        raise NotImplementedError("ACAT-O is binary-only, like the reference")
     W = len(wbeta)
     runner = _AcatVRunner(kernel, wbeta, config, src, with_full_burden=True)
     results, full = runner.run(units)

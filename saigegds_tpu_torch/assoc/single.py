@@ -1,14 +1,16 @@
 """Single-variant association scan (the ``seqAssocGLMM_SPA`` equivalent).
 
-The counterpart of ``saigegds_tpu/assoc/single.py`` for a binary trait over
-a GDS genotype node.  Variant blocks stream through three threads — GDS
-decode, planar 2-bit pack, upload to the device — into the phase-1 score
-test (``ops/score_packed.py``, kernel B3; with ``packed_2bit=False`` the
-int8 block ships as it is, through kernel B4); variants with
-``p_noadj <= spa.pval`` are refined in phase 2 by the saddlepoint
-approximation (``ops/score.spa_refine_binary``).  Output columns and
-semantics match the reference (``R/assoc_single.r:92-334``): id, chr, pos,
-rs.id, ref, alt, AF.alt, mac, num, beta, SE, pval, p.norm, converged.
+The counterpart of ``saigegds_tpu/assoc/single.py`` for a binary or a
+quantitative trait over a GDS genotype node.  Variant blocks stream through
+three threads — GDS decode, planar 2-bit pack, upload to the device — into
+the phase-1 score test (``ops/score_packed.py``, kernel B3; with
+``packed_2bit=False`` the int8 block ships as it is, through kernel B4); for
+a binary trait, variants with ``p_noadj <= spa.pval`` are refined in phase
+2 by the saddlepoint approximation (``ops/score.spa_refine_binary``), and a
+quantitative trait's phase 1 is final.  Output columns and semantics match
+the reference (``R/assoc_single.r:92-334``): id, chr, pos, rs.id, ref, alt,
+AF.alt, mac, num, beta, SE, pval, and for a binary trait p.norm and
+converged.
 Variants failing the MAF/MAC/missing filters are dropped from the table,
 as in the reference's NULL results (R/assoc_single.r:228-234).
 
@@ -30,7 +32,8 @@ from ..models.nullmodel import NullModel
 from ..ops._cuda import check_device
 from ..ops.score import ScanParams, spa_refine_binary, stack_stats, \
     unstack_stats
-from ..ops.score_packed import pack_scan_model, score_stats_binary_packed
+from ..ops.score_packed import pack_scan_model, score_stats_binary_packed, \
+    score_stats_quant_packed
 from ..ops.sparse_codes import SPARSE_NNZ_FRAC, encode_sparse_rows
 
 SPA_BATCH = 256  # compact SPA refinement batch size
@@ -122,8 +125,6 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
     dev = check_device(device)
     model = NullModel.load(modobj)
     seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
-    if model.trait_type != "binary":
-        raise _not_ported("a quantitative trait", "item 2")
     if config.dsnode or not config.use_packed or not seq.has_genotype():
         raise _not_ported("a scan of DS/dosage nodes", "item 8")
     if config.spa_mixed:
@@ -149,6 +150,7 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
     blocks = seq.iter_code_blocks(config.block_size,
                                   variant_mask=variant_mask)
     res = _scan_blocks(scan_model, params, blocks, dev,
+                       binary=model.trait_type == "binary",
                        packed_2bit=config.packed_2bit,
                        spa_compact=config.spa_compact, cols=cols,
                        instrument=instrument)
@@ -175,10 +177,13 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
 
 
 def _scan_blocks(scan_model, params, block_iter, device: torch.device,
-                 packed_2bit: bool = True, spa_compact: bool = True,
-                 cols=None, instrument=None) -> dict:
-    """Two-phase scan core for one binary model: batched score kernel +
-    compact SPA (``_scan_blocks_multi`` of the JAX package, P = 1).
+                 binary: bool, packed_2bit: bool = True,
+                 spa_compact: bool = True, cols=None,
+                 instrument=None) -> dict:
+    """Two-phase scan core for one model: batched score kernel + compact
+    SPA (``_scan_blocks_multi`` of the JAX package, P = 1).  A
+    quantitative model (``binary=False``) flags nothing for SPA, and its
+    table has no ``p.norm`` or ``converged`` column.
 
     Blocks ship 2-bit planar (kernel B3) or, with ``packed_2bit=False``,
     as the int8 codes themselves (kernel B4); phase 2 ships the flagged
@@ -203,6 +208,8 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
         instrument.setdefault("spa_s", 0.0)
         instrument.setdefault("spa_n", 0)
     pm = pack_scan_model(scan_model)
+    phase1 = score_stats_binary_packed if binary \
+        else score_stats_quant_packed
     rows_idx = []
     outs = []
     spa_G, spa_rows = [], []        # flagged variants for phase 2
@@ -315,7 +322,7 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
 
     for idx, G, payload in block_iter:
         t_di = _time.perf_counter()
-        stacked = stack_stats(score_stats_binary_packed(pm, params, payload))
+        stacked = stack_stats(phase1(pm, params, payload))
         if instrument is not None:
             instrument["dispatch_s"].append(_time.perf_counter() - t_di)
         window.append((idx, G, stacked))
@@ -342,7 +349,7 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
         beta[r] = b
         se[r] = e
 
-    return {
+    tab = {
         "__idx__": np.concatenate(rows_idx) if rows_idx
         else np.empty(0, int),
         "AF.alt": col("af"),
@@ -351,9 +358,11 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
         "beta": beta,
         "SE": se,
         "pval": pval,
-        "p.norm": col("pval_noadj"),
-        "converged": converged.astype(bool),
     }
+    if binary:
+        tab["p.norm"] = col("pval_noadj")
+        tab["converged"] = converged.astype(bool)
+    return tab
 
 
 def _to_device(a, device: torch.device):

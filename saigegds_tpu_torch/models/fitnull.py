@@ -1,5 +1,5 @@
-"""Null GLMM fitting for a binary trait: penalized IRLS + AI-REML with PCG
-solves on a torch device.
+"""Null GLMM fitting for a binary or a quantitative trait: penalized IRLS +
+AI-REML with PCG solves on a torch device.
 
 The counterpart of ``saigegds_tpu/models/fitnull.py`` (reference R driver
 ``seqFitNullGLMM_SPA`` R/saige_main.r:223-658; C engines
@@ -37,7 +37,8 @@ from ..ops.grm import build_grm
 from ..ops.packed_grm import build_packed2_grm, build_packed2_grm_streamed
 from ..ops.pcg import pcg_solve
 from ..utils.rrandom import RRandom
-from .glm import GlmFit, ObjNoK, glm_binomial, obj_nok_binary, qr_transform
+from .glm import GlmFit, ObjNoK, glm_binomial, glm_gaussian, \
+    obj_nok_binary, obj_nok_quant, qr_transform, rank_norm
 from .nullmodel import NullModel
 
 
@@ -47,7 +48,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 # ---------------------------------------------------------------------------
-# family callbacks (R's binomial()$linkinv, mu.eta, variance)
+# family callbacks (R family objects: linkinv, mu.eta, variance)
 
 
 class _Binomial:
@@ -66,6 +67,22 @@ class _Binomial:
     @staticmethod
     def variance(mu):
         return mu * (1.0 - mu)
+
+
+class _Gaussian:
+    name = "gaussian"
+
+    @staticmethod
+    def linkinv(eta):
+        return eta
+
+    @staticmethod
+    def mu_eta(eta):
+        return np.ones_like(eta)
+
+    @staticmethod
+    def variance(mu):
+        return np.ones_like(mu)
 
 
 # ---------------------------------------------------------------------------
@@ -173,11 +190,15 @@ def _get_coeff(grm, y, X, tau, family, alpha0, eta0, offset, maxiter_pcg,
 
 
 # ---------------------------------------------------------------------------
-# Hutchinson trace estimator
+# Hutchinson trace estimators
 
 
-def _get_trace(grm, st: _CoeffState, tau, cfg: NullModelConfig) -> float:
-    """trace(P*GRM) via Rademacher probes.
+def _get_trace(grm, st: _CoeffState, tau, cfg: NullModelConfig,
+               quant: bool = False):
+    """trace(P*GRM), and for a quantitative trait also trace(P), via
+    Rademacher probes: ``float`` for a binary trait, ``(trace(P),
+    trace(P*GRM))`` for a quantitative one, whose escalation waits for
+    both CVs.
 
     Probes replay R's ``set.seed(seed); rbinom(n,1,0.5)`` stream and the
     +10 escalation continues the same stream (src/saige_fitnull.cpp:627-718).
@@ -185,7 +206,7 @@ def _get_trace(grm, st: _CoeffState, tau, cfg: NullModelConfig) -> float:
     rng = RRandom(cfg.seed)
     SiX, cov = st.Sigma_iX, st.cov
     n = grm.n_samples
-    buf = []
+    buf, buf0 = [], []
     n_runs = cfg.nrun
     while True:
         need = n_runs - len(buf)
@@ -195,22 +216,27 @@ def _get_trace(grm, st: _CoeffState, tau, cfg: NullModelConfig) -> float:
         PU = SiU - SiX @ (cov @ (SiX.T @ U))
         AU = _grm_mv(grm, U)
         buf.extend(np.sum(AU * PU, axis=0).tolist())
+        if quant:
+            buf0.extend(np.sum(U * PU, axis=0).tolist())
         cv = _calc_cv(buf)
-        if cv <= cfg.trace_cv_cutoff:
+        cv0 = _calc_cv(buf0) if quant else 0.0
+        if cv <= cfg.trace_cv_cutoff and cv0 <= cfg.trace_cv_cutoff:
             break
         if cfg.nrun_max and n_runs + 10 > cfg.nrun_max:
             # the reference escalates unboundedly (src/saige_fitnull.cpp:
             # 644-663); an optional cap trades trace variance for progress
             warnings.warn(
-                f"trace CV {cv:.3g} > {cfg.trace_cv_cutoff:.3g} at the "
-                f"nrun_max={cfg.nrun_max} probe cap; proceeding")
+                f"trace CV {max(cv, cv0):.3g} > {cfg.trace_cv_cutoff:.3g} "
+                f"at the nrun_max={cfg.nrun_max} probe cap; proceeding")
             break
         n_runs += 10
+    if quant:
+        return float(np.mean(buf0)), float(np.mean(buf))
     return float(np.mean(buf))
 
 
 # ---------------------------------------------------------------------------
-# AI-REML update
+# AI-REML updates
 
 
 def _get_ai_score_binary(grm, st, tau, cfg):
@@ -224,6 +250,28 @@ def _get_ai_score_binary(grm, st, tau, cfg):
     PAPY = PAPY_1 - SiX @ (cov @ (SiX.T @ PAPY_1))
     AI = float(APY @ PAPY)
     return YPAPY, trace, AI
+
+
+def _get_ai_score_quant(grm, st, tau, cfg):
+    """The quantitative AI-REML score: both right-hand sides (PY for
+    tau_E, GRM*PY for tau_G) solved in one batched PCG, and the 2x2
+    average information."""
+    SiX, cov, Y = st.Sigma_iX, st.cov, st.Y
+    PY = st.Sigma_iY - SiX @ (cov @ (SiX.T @ Y))
+    A0PY = PY
+    APY = _grm_mv(grm, PY)
+    YPAPY = float(PY @ APY)
+    YPA0PY = float(PY @ A0PY)
+    trace0, trace1 = _get_trace(grm, st, tau, cfg, quant=True)
+    B = np.column_stack([A0PY, APY])
+    sol = _pcg(grm, st.W, tau, B, cfg.tol_pcg, cfg.maxiter_pcg)
+    PA0PY = sol[:, 0] - SiX @ (cov @ (SiX.T @ sol[:, 0]))
+    PAPY = sol[:, 1] - SiX @ (cov @ (SiX.T @ sol[:, 1]))
+    AI = np.empty((2, 2))
+    AI[0, 0] = A0PY @ PA0PY
+    AI[1, 1] = APY @ PAPY
+    AI[0, 1] = AI[1, 0] = A0PY @ PAPY
+    return (YPAPY, YPA0PY), (trace0, trace1), AI
 
 
 def _fit_tau_binary(grm, st, tau0, cfg):
@@ -242,8 +290,28 @@ def _fit_tau_binary(grm, st, tau0, cfg):
     return tau
 
 
+def _fit_tau_quant(grm, st, tau0, cfg):
+    """fitglmmaiRPCG_q (src/saige_fitnull.cpp:893-928): a Newton step on
+    both taus, halved while either is negative; a tau that started below
+    ``tol`` stays at 0."""
+    zero_v = tau0 < cfg.tol
+    (YPAPY, YPA0PY), (trace0, trace1), AI = _get_ai_score_quant(
+        grm, st, tau0, cfg)
+    score = np.array([YPA0PY - trace0, YPAPY - trace1])
+    Dtau = np.linalg.solve(AI, score)
+    tau = tau0 + Dtau
+    tau[zero_v & (tau < cfg.tol)] = 0.0
+    step = 1.0
+    while tau[0] < 0.0 or tau[1] < 0.0:
+        step *= 0.5
+        tau = tau0 + step * Dtau
+        tau[zero_v & (tau < cfg.tol)] = 0.0
+    tau[tau < cfg.tol] = 0.0
+    return tau
+
+
 # ---------------------------------------------------------------------------
-# outer driver (saige_fit_AI_PCG_binary)
+# outer loop (saige_fit_AI_PCG_{binary,quant})
 
 
 @dataclass
@@ -259,10 +327,11 @@ class GlmmFit:
 
 
 def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
-               cfg: NullModelConfig, verbose=False) -> GlmmFit:
-    """The saige_fit_AI_PCG_binary outer loop
-    (src/saige_fitnull.cpp:948-1099)."""
-    family = _Binomial()
+               cfg: NullModelConfig, binary: bool,
+               verbose=False) -> GlmmFit:
+    """The saige_fit_AI_PCG_{binary,quant} outer loop
+    (src/saige_fitnull.cpp:948-1099, 1102-1248)."""
+    family = _Binomial() if binary else _Gaussian()
     y = fit0.y.astype(np.float64)
     n = len(y)
     offset = np.zeros(n)
@@ -276,9 +345,15 @@ def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
 
     st = _get_coeff(grm, y, X, tau, family, alpha0, eta0, offset,
                     cfg.maxiter_pcg, cfg.maxiter, cfg.tol_pcg)
-    # first moment-based update of tau
-    YPAPY, trace, _ = _get_ai_score_binary(grm, st, tau, cfg)
-    tau[1] = max(0.0, tau0[1] + tau0[1] ** 2 * (YPAPY - trace) / n)
+    # first moment-based update of tau (both taus for a quantitative trait)
+    if binary:
+        YPAPY, trace, _ = _get_ai_score_binary(grm, st, tau, cfg)
+        tau[1] = max(0.0, tau0[1] + tau0[1] ** 2 * (YPAPY - trace) / n)
+    else:
+        (YPAPY, YPA0PY), (trace0, trace1), _ = _get_ai_score_quant(
+            grm, st, tau, cfg)
+        tau[0] = max(0.0, tau0[0] + tau0[0] ** 2 * (YPA0PY - trace0) / n)
+        tau[1] = max(0.0, tau0[1] + tau0[1] ** 2 * (YPAPY - trace1) / n)
 
     it = 0
     brk = False
@@ -292,7 +367,8 @@ def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
         for itry in range(1, 12):
             st = _get_coeff(grm, y, X, tau0, family, alpha0, eta0, offset,
                             cfg.maxiter_pcg, cfg.maxiter, cfg.tol_pcg)
-            tau = _fit_tau_binary(grm, st, tau0, cfg)
+            tau = (_fit_tau_binary if binary else _fit_tau_quant)(
+                grm, st, tau0, cfg)
             if np.max(tau) > tol_inv_2:
                 if itry <= 10:
                     tau0[1] *= 0.5
@@ -304,7 +380,9 @@ def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
 
         alpha = st.alpha
         eta = st.eta
-        brk = tau[1] == 0 or bool(
+        if not binary and tau[0] <= 0:
+            raise OverflowError("Sigma_E = 0, model not converged!")
+        brk = (binary and tau[1] == 0) or bool(
             np.max(np.abs(tau - tau0) / (np.abs(tau) + np.abs(tau0)
                                          + cfg.tol)) < cfg.tol)
         if brk:
@@ -321,19 +399,19 @@ def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# variance ratio (saige_calc_var_ratio_binary)
+# variance ratio (saige_calc_var_ratio_{binary,quant})
 
 
 def calc_var_ratio(grm: _FitGRM, codes, fit0: GlmFit, glmm: GlmmFit,
                    nok: ObjNoK,
                    cfg: NullModelConfig, marker_order: np.ndarray,
-                   verbose=False):
+                   binary: bool, verbose=False):
     """Estimate var1/var2 on random markers with MAC>20, adaptively adding
     10 until CV <= ratioCVcutoff (src/saige_fitnull.cpp:1255-1474).
 
     ``codes`` gives int8 genotype rows by 0-based GRM variant index: an
     [M, N] array, or a :class:`_MarkerRows` cache for a streamed fit."""
-    family = _Binomial()
+    family = _Binomial() if binary else _Gaussian()
     eta = fit0.linear_predictors
     mu = fit0.fitted_values
     mu_eta = family.mu_eta(eta)
@@ -378,7 +456,10 @@ def calc_var_ratio(grm: _FitGRM, codes, fit0: GlmFit, glmm: GlmmFit,
                 var1 = (float(G[:, k] @ SiG[:, k]) -
                         float(G[:, k] @ adj[:, k])) / ac
                 gn = G[:, k] / math.sqrt(ac)
-                var2 = float(np.sum(mu * (1 - mu) * gn * gn))
+                if binary:
+                    var2 = float(np.sum(mu * (1 - mu) * gn * gn))
+                else:
+                    var2 = float(gn @ gn)
                 rows["id"].append(i_snp)
                 rows["maf"].append(af)
                 rows["mac"].append(ac)
@@ -558,8 +639,9 @@ def fit_null_glmm(formula: str, data, gdsfile,
                   model_savefn: str = "", verbose: bool = False,
                   mesh=None, variant_id=None, instrument=None, *,
                   device) -> NullModel:
-    """Fit the null GLMM of a binary trait (the ``seqFitNullGLMM_SPA``
-    equivalent) with the GRM and every PCG solve on ``device``.
+    """Fit the null GLMM of a binary or a quantitative trait
+    (``config.trait_type``; the ``seqFitNullGLMM_SPA`` equivalent) with
+    the GRM and every PCG solve on ``device``.
 
     ``formula``: e.g. ``"y ~ x1 + x2"`` over columns of ``data``, a mapping
     from column name to a 1-D array that includes ``config.sample_col``
@@ -572,9 +654,7 @@ def fit_null_glmm(formula: str, data, gdsfile,
     """
     cfg = config
     dev = check_device(device)
-    if cfg.trait_type == "quantitative":
-        raise _not_ported("A quantitative-trait fit", "item 2")
-    if cfg.trait_type != "binary":
+    if cfg.trait_type not in ("binary", "quantitative"):
         raise ValueError(f"Invalid trait type {cfg.trait_type!r}")
     if cfg.checkpoint:
         raise _not_ported("Fit checkpoints", "item 8")
@@ -592,22 +672,12 @@ def fit_null_glmm(formula: str, data, gdsfile,
     t1 = time.perf_counter()
 
     y_raw = prep["data"][resp].astype(np.float64)
-    if set(np.unique(y_raw)) - {0.0, 1.0}:
-        raise ValueError("binary trait must be coded 0/1")
-    X_new = prep["X_new"]
-    fit0 = glm_binomial(X_new, y_raw)
-    nok = obj_nok_binary(X_new, y_raw)
-    # initial tau: (1, 0.5) unless tau_init given (R/saige_main.r:489-495)
-    tau = np.array([1.0, 0.5])
-    ti = np.nan_to_num(np.asarray(cfg.tau_init, float))
-    ti[ti < 0] = 0
-    if ti[1] > 0:
-        tau[1] = ti[1]
-    glmm = fit_ai_pcg(grm, fit0, X_new, tau, cfg, verbose=verbose)
+    glmm, fit0, nok, binary = _fit_trait(grm, y_raw, prep["X_new"], cfg,
+                                         verbose)
     t2 = time.perf_counter()
 
     vr = calc_var_ratio(grm, prep["codes"], fit0, glmm, nok, cfg,
-                        prep["marker_order"], verbose=verbose)
+                        prep["marker_order"], binary=binary, verbose=verbose)
     t3 = time.perf_counter()
     if instrument is not None:
         instrument.update(ingest_s=t1 - t0, aireml_s=t2 - t1,
@@ -623,6 +693,44 @@ def fit_null_glmm(formula: str, data, gdsfile,
     if model_savefn:
         model.save(model_savefn)
     return model
+
+
+def _fit_trait(grm: _FitGRM, y_raw: np.ndarray, X_new: np.ndarray,
+               cfg: NullModelConfig, verbose):
+    """The trait's GLM start, SA_NULL projection and AI-REML fit ->
+    (glmm, fit0, nok, binary)."""
+    if cfg.trait_type == "binary":
+        if set(np.unique(y_raw)) - {0.0, 1.0}:
+            raise ValueError("binary trait must be coded 0/1")
+        fit0 = glm_binomial(X_new, y_raw)
+        nok = obj_nok_binary(X_new, y_raw)
+        # initial tau: (1, 0.5) unless tau_init given (R/saige_main.r:489-495)
+        tau = np.array([1.0, 0.5])
+        ti = np.nan_to_num(np.asarray(cfg.tau_init, float))
+        ti[ti < 0] = 0
+        if ti[1] > 0:
+            tau[1] = ti[1]
+        glmm = fit_ai_pcg(grm, fit0, X_new, tau, cfg, binary=True,
+                          verbose=verbose)
+        return glmm, fit0, nok, True
+    yq = y_raw.copy()
+    if cfg.inv_norm:
+        # rank-based inverse normal of the covariate residuals, rescaled
+        # to their SD
+        fit_pre = glm_gaussian(X_new, yq)
+        resid_sd = np.std(fit_pre.residuals, ddof=1)
+        yq = rank_norm(fit_pre.residuals) * resid_sd
+    fit0 = glm_gaussian(X_new, yq)
+    nok = obj_nok_quant(X_new, fit0)
+    # initial tau: var(y) split by tau_init, or evenly; the gaussian
+    # working response is y itself
+    ti = np.nan_to_num(np.asarray(cfg.tau_init, float))
+    ti[ti < 0] = 0
+    tau = ti if ti.sum() > 0 else np.array([0.5, 0.5])
+    tau = np.var(fit0.y, ddof=1) * tau / tau.sum()
+    glmm = fit_ai_pcg(grm, fit0, nok.X1, tau, cfg, binary=False,
+                      verbose=verbose)
+    return glmm, fit0, nok, False
 
 
 def _prepare_fit(seq: SeqData, data, cfg, resp: str, covs, variant_id,

@@ -1,11 +1,11 @@
 """Batched single-variant score-test state and the phase-2 SPA refinement.
 
-The counterpart of ``saigegds_tpu/ops/score.py`` for the binary scan: the
-model state mirrors ``saige_score_test_init`` (reference
-src/saige_main.cpp:103-150) and ``.init_nullmod`` (R/assoc_single.r:17-67),
-and :func:`spa_refine_binary` refines the variants that phase 1 flagged
-with ``p_noadj <= spa.pval`` (src/saige_main.cpp:355-400).  Every
-statistic is float64.
+The counterpart of ``saigegds_tpu/ops/score.py``: the model state mirrors
+``saige_score_test_init`` (reference src/saige_main.cpp:103-150) and
+``.init_nullmod`` (R/assoc_single.r:17-67); a binary trait's phase 1
+flags the variants with ``p_noadj <= spa.pval`` for
+:func:`spa_refine_binary` (src/saige_main.cpp:355-400), a quantitative
+trait's (:func:`score_stats_quant`) is final.  Every statistic is float64.
 """
 
 from __future__ import annotations
@@ -140,6 +140,36 @@ def binary_stats(model: ScanModel, params: ScanParams, valid, af, mac, num,
         (pval_noadj <= params.spa_pval)
     return ScoreStats(valid=valid, af=af, mac=mac, num=num, beta=beta, se=se,
                       pval=pval_noadj, need_spa=need_spa)
+
+
+def score_stats_quant(model: ScanModel, params: ScanParams,
+                      G: torch.Tensor) -> ScoreStats:
+    """Dense quantitative-trait score test on f64 rows G [R, N] (NaN =
+    missing; the aggregate tests' burden rows): chi-square p-values, no
+    SPA (``single_test_quant``, src/saige_main.cpp:189-276)."""
+    g, af, ac, num, mac, maf, miss, flip = prep_dosage(G)
+    valid = _valid_mask(params, num, maf, mac, miss)
+    g_tilde = _adjusted_genotype(model, g)
+    S = torch.sum(model.y_mu[None, :] * g_tilde, dim=1)
+    var2 = torch.sum(g_tilde * g_tilde, dim=1)
+    return quant_stats(model, valid, af, mac, num, flip, S, var2)
+
+
+def quant_stats(model: ScanModel, valid, af, mac, num, flip, S,
+                var2) -> ScoreStats:
+    """Score S and unit-weight variance var2 -> chi-square p-values, beta
+    and SE of a quantitative trait: Tstat = S / sqrt(mac) / tau_E; nothing
+    is flagged for SPA."""
+    inv_mac = 1.0 / mac
+    inv_sqrt_mac = torch.sqrt(inv_mac)
+    var1 = var2 * inv_mac * variant_var_ratio(model, mac)
+    Tstat = S * inv_sqrt_mac / model.tau[0]
+    pval = pchisq1_sf(Tstat * Tstat / var1)
+    beta = Tstat / var1 * inv_sqrt_mac
+    beta = torch.where(flip, -beta, beta)
+    se = torch.abs(beta / qnorm(pval / 2.0))
+    return ScoreStats(valid=valid, af=af, mac=mac, num=num, beta=beta, se=se,
+                      pval=pval, need_spa=torch.zeros_like(valid))
 
 
 def unpack_codes_2bit_f64(packed: torch.Tensor, n_samples: int):

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from .packed_grm import N_SLICES, _slice_i8
 from .score import ScanModel, ScanParams, ScoreStats, _valid_mask, \
-    binary_stats, score_stats_binary
+    binary_stats, quant_stats, score_stats_binary, score_stats_quant
 from .score_kernel import indicator_dot, indicator_dot_2bit
 from .sparse_codes import decode_codes
 
@@ -213,6 +213,17 @@ def score_stats_binary_packed(pm: PackedScanModel, params: ScanParams,
                         m["num"], m["flip"], m["S"], m["var"])
 
 
+def score_stats_quant_packed(pm: PackedScanModel, params: ScanParams,
+                             payload) -> ScoreStats:
+    """Phase-1 quantitative score test from one block on any of the three
+    routes (no SPA).  ``pack_scan_model`` uses W = 1 for a quantitative
+    model, so ``var`` is sum g_tilde^2 (``single_test_quant``,
+    src/saige_main.cpp:189-276)."""
+    m = _packed_phase1(pm, params, payload)
+    return quant_stats(pm.dense, m["valid"], m["af"], m["mac"], m["num"],
+                       m["flip"], m["S"], m["var"])
+
+
 # ---------------------------------------------------------------------------
 # Device-side burden collapse: unit codes ship once (sparse or 2-bit), the
 # weighted burden rows are built ON DEVICE and scored in the same call —
@@ -246,8 +257,9 @@ def _burden_rows(codes: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
 
 def burden_score_packed(model: ScanModel, params: ScanParams, payload,
                         A: torch.Tensor, Bm: torch.Tensor,
-                        C: torch.Tensor) -> ScoreStats:
-    """Collapse + score burden rows on the device (binary trait).
+                        C: torch.Tensor, binary: bool = True) -> ScoreStats:
+    """Collapse + score burden rows on the device, with the binary or the
+    quantitative (``binary=False``) score test.
 
     ``payload`` is the unit batch's codes: the 2-bit planar uint8
     [S, ceil(N/4)] or the gap-coded ``(entries, row_ptr)`` transport
@@ -262,4 +274,5 @@ def burden_score_packed(model: ScanModel, params: ScanParams, payload,
         pi = payload.to(torch.int32)
         codes = torch.cat([(pi >> (2 * p)) & 3 for p in range(4)],
                           dim=1)[:, :N].to(torch.int8)
-    return score_stats_binary(model, params, _burden_rows(codes, A, Bm, C))
+    fn = score_stats_binary if binary else score_stats_quant
+    return fn(model, params, _burden_rows(codes, A, Bm, C))

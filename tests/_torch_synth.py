@@ -5,7 +5,9 @@ genotype codes with a MAF spectrum that includes rare variants, missing
 entries, the corner rows of the scan (all missing, monomorphic, all-het,
 ALT-major), a few rows associated with the phenotype (so phase 2 SPA has
 small p-values to refine), a binary phenotype at ~10% prevalence, and a
-JAX ``NullModel`` built from the GLM helpers with tau = (1, 0).
+JAX ``NullModel`` built from the GLM helpers with tau = (1, 0); for a
+quantitative trait, a right-skewed phenotype and a JAX ``NullModel`` with
+tau_E != 1.
 """
 
 import numpy as np
@@ -49,6 +51,19 @@ def synth_pheno(rng, n_samples: int, n_cov: int = 3):
     return X, y
 
 
+def synth_quant_pheno(rng, n_samples: int, n_cov: int = 3, g=None):
+    """(X [N, 1 + n_cov] with an intercept column, quantitative y): the
+    covariates, an optional genetic value ``g`` [N] and a right-skewed
+    (log-normal, as for BMI) noise."""
+    X = np.column_stack([np.ones(n_samples),
+                         rng.normal(size=(n_samples, n_cov))])
+    y = 25.0 + X[:, 1:] @ rng.normal(size=n_cov) * 0.5 \
+        + np.exp(rng.normal(size=n_samples) * 0.6)
+    if g is not None:
+        y = y + g
+    return X, y
+
+
 def var_ratio_table(kind: str) -> dict:
     """A variance-ratio table: one pooled ratio, or MAC categories."""
     ratio = np.array([0.97, 1.04, 1.11, 0.99, 1.02, 1.08])
@@ -70,6 +85,31 @@ def jax_null_model(X, y, var_ratio: dict, sample_id=None):
     return NullModel(
         trait_type="binary", coefficients=fit.coefficients,
         coef_names=[f"x{i}" for i in range(K)], tau=np.array([1.0, 0.0]),
+        linear_predictors=fit.linear_predictors,
+        fitted_values=nok.mu, residuals=nok.res, cov=np.eye(K),
+        converged=True, y=nok.y, mu=nok.mu, res=nok.res, V=nok.V,
+        X1=nok.X1, XV=nok.XV, XXVX_inv=nok.XXVX_inv,
+        var_ratio=var_ratio,
+        sample_id=np.arange(1, len(y) + 1, dtype=np.int32)
+        if sample_id is None else sample_id,
+        variant_id=None)
+
+
+QUANT_TAU = (0.83, 0.31)   # tau_E != 1, so Tstat's division by it shows
+
+
+def jax_quant_null_model(X, y, var_ratio: dict, sample_id=None):
+    """A quantitative-trait ``saigegds_tpu`` NullModel from the GLM
+    helpers (``glm_gaussian``, ``obj_nok_quant``), tau = QUANT_TAU."""
+    from saigegds_tpu.models.glm import glm_gaussian, obj_nok_quant
+    from saigegds_tpu.models.nullmodel import NullModel
+
+    fit = glm_gaussian(X, y)
+    nok = obj_nok_quant(X, fit)
+    K = nok.X1.shape[1]
+    return NullModel(
+        trait_type="quantitative", coefficients=fit.coefficients,
+        coef_names=[f"x{i}" for i in range(K)], tau=np.array(QUANT_TAU),
         linear_predictors=fit.linear_predictors,
         fitted_values=nok.mu, residuals=nok.res, cov=np.eye(K),
         converged=True, y=nok.y, mu=nok.mu, res=nok.res, V=nok.V,

@@ -266,15 +266,11 @@ def test_acat_matches_jax():
     assert np.isnan(sg.acat_p([0.2, 1.5]))
 
 
-@pytest.mark.parametrize("case", ["quantitative", "dosage"])
+@pytest.mark.parametrize("case", ["dosage"])
 def test_unported_options_raise(data, case):
     gds, jm, _ = data
     model = sg.NullModel.from_arrays(vars(jm))
-    config = sg.AggregateConfig()
-    if case == "quantitative":
-        model.trait_type = "quantitative"
-    else:
-        config = sg.AggregateConfig(dsnode="annotation/format/DS")
+    config = sg.AggregateConfig(dsnode="annotation/format/DS")
     tu = sg.units_from_groups(SeqData(gds), {"a": [1, 2, 3]})
     with pytest.raises(NotImplementedError):
         sg.assoc_burden(gds, model, tu, config, device="cpu")

@@ -180,8 +180,7 @@ def test_factor_covariate_and_alignment_match_jax(data):
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(trait_type="quantitative"), dict(checkpoint="ck"),
-    dict(var_ratio_mac_cat=(10.5, 20.5)), "mesh"])
+    dict(checkpoint="ck"), dict(var_ratio_mac_cat=(10.5, 20.5)), "mesh"])
 def test_not_ported_raises(data, cfg):
     gds, cols, _ = data
     kw = {}

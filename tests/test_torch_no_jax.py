@@ -1,8 +1,9 @@
 """Guards of the PyTorch port's boundary with the JAX package.
 
-* The port imports and scans with ``jax`` made unimportable, fits and
-  runs the aggregate tests with ``jax`` and ``pandas`` made unimportable,
-  and loads no
+* The port imports and scans with ``jax`` made unimportable, fits (a
+  binary and a quantitative trait) and runs the aggregate tests (ACAT-O
+  of a binary trait, the burden test of a quantitative one) with ``jax``
+  and ``pandas`` made unimportable, and loads no
   ``saigegds_tpu`` module on the way (``saigegds_tpu/__init__.py`` imports
   jax, so the port copies the framework-free host layers instead).
 * Those copies stay byte-identical to their originals, so a fix to one is
@@ -129,6 +130,42 @@ print("OK")
 """
 
 
+_QUANT_WITHOUT_JAX_OR_PANDAS = r"""
+import sys
+sys.modules["jax"] = None          # any import of jax or pandas now raises
+sys.modules["pandas"] = None
+import numpy as np
+import saigegds_tpu_torch as sg
+from saigegds_tpu_torch.io.gds_write import write_seqarray_gds
+from saigegds_tpu_torch.io.seqarray import SeqData
+
+rng = np.random.default_rng(3)
+N, M = 240, 120
+af = rng.uniform(0.02, 0.5, size=(M, 1))
+codes = rng.binomial(2, af, size=(M, N)).astype(np.int8)
+codes[rng.random((M, N)) < 0.005] = 3
+path = sys.argv[1]
+write_seqarray_gds(path, codes, position=np.arange(1, M + 1) * 10)
+g = np.where(codes == 3, 0, codes).T @ rng.normal(size=M) * 0.1
+data = {"sample.id": np.arange(1, N + 1), "x1": rng.normal(size=N),
+        "y": 20 + g + np.exp(rng.normal(size=N))}
+model = sg.fit_null_glmm("y ~ x1", data, path,
+                         sg.NullModelConfig(trait_type="quantitative",
+                                            num_marker=5), device="cpu")
+assert model.trait_type == "quantitative" and (model.tau > 0).all()
+assert np.isfinite(model.var_ratio["ratio"]).all()
+units = sg.sliding_windows(SeqData(path), win_size=200, win_shift=100)
+tab = sg.assoc_burden(path, model, units, sg.AggregateConfig(), device="cpu")
+p = tab["pval.b1_1"][np.isfinite(tab["pval.b1_1"])]
+assert len(p) and ((p >= 0) & (p <= 1)).all() and "p.norm.b1_1" not in tab
+bad = [m for m in sys.modules
+       if m == "saigegds_tpu" or m.startswith("saigegds_tpu.")
+       or (m.startswith(("jax", "pandas")) and sys.modules[m] is not None)]
+assert not bad, bad
+print("OK")
+"""
+
+
 def _run(code: str, tmp_path):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run(
@@ -163,6 +200,10 @@ def test_sources_name_no_jax():
 
 def test_aggregate_runs_without_jax_or_pandas(tmp_path):
     _run(_AGGREGATE_WITHOUT_JAX_OR_PANDAS, tmp_path)
+
+
+def test_quantitative_runs_without_jax_or_pandas(tmp_path):
+    _run(_QUANT_WITHOUT_JAX_OR_PANDAS, tmp_path)
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

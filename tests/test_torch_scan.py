@@ -195,15 +195,13 @@ def test_int8_route_matches_default(data, scans):
     _assert_tables_match(got, want)
 
 
-@pytest.mark.parametrize("case", ["quantitative", "rds_model", "dosage"])
+@pytest.mark.parametrize("case", ["rds_model", "dosage"])
 def test_unported_options_raise(data, case, tmp_path):
     tmp, gds, X, y = data
     jm = jax_null_model(X, y, var_ratio_table("pooled"))
     model = NullModel.from_arrays(vars(jm))
     config = ScanConfig(block_size=BLOCK)
-    if case == "quantitative":
-        model.trait_type = "quantitative"
-    elif case == "rds_model":
+    if case == "rds_model":
         model = str(tmp_path / "model.rds")
     else:
         config = ScanConfig(block_size=BLOCK, dsnode="annotation/format/DS")
