@@ -39,9 +39,11 @@ and prints no result line):
 4. the null-GLMM fit at full width: a synthetic GDS of 16,384 GRM variants
    x 430,000 samples (allele frequencies 0.05-0.5, 0.5% missing) and a
    polygenic binary phenotype (true tau_G ~ 0.6, 3 covariates), then
-   ``fit_null_glmm(..., device="cuda")`` through the streamed ingest; it
-   must converge with tau_G > 0 and finite variance ratios, and B1 and B2
-   must each launch once per GRM product; then one GRM product at R = 30
+   ``fit_null_glmm(..., device="cuda")`` through the streamed ingest, with
+   ``checkpoint=`` set to a path in ``_smoke/``; it must converge with
+   tau_G > 0 and finite variance ratios, B1 and B2 must each launch once
+   per GRM product, and the checkpoint files must be gone once the model
+   is assembled; then one GRM product at R = 30
    columns over a random store of the fit's size and missing rate, timed
    by CUDA events and profiled by kernel (``torch.profiler``);
 5. the fit held against the CPU: one GRM product over the first 2,048 GRM
@@ -73,7 +75,8 @@ and prints no result line):
    minor alleles, 40% rare, 10% low-frequency, 0.5% missing), 512 gene
    units of 8-64 contiguous variants (8 of them enriched in the fit's
    cases), read frame by frame as a file above the whole-matrix cache is;
-   ``assoc_acat_o(..., device="cuda")`` over all units with the default
+   ``assoc_acat_o(..., device="cuda")`` over the first 256 units (5 of
+   them enriched) with the default
    ``AggregateConfig``: every p-value in [0, 1], some rows through SPA, and
    B5 launched once per sparse payload, B4 once per sparse single-variant
    payload; ``assoc_burden`` and ``assoc_acat_v`` on the card over the
@@ -84,7 +87,47 @@ and prints no result line):
    units: B5 once per sparse payload and no other kernel, no row through
    SPA, every p-value in [0, 1], the first 32 units on the CPU within
    1e-10 relative with the same NaN pattern; ``assoc_acat_o`` on the
-   quantitative model raises NotImplementedError.
+   quantitative model raises NotImplementedError;
+11. the scan of imputed dosages at N = 430,000: a DS GDS (``annotation/
+   format/DS``, ZIP_RA) of 1,024 variants over the model's samples and 16
+   more at shuffled positions, as in phase 7; hard calls with phase 7's
+   MAF spectrum (8 variants tied to the phenotype, 0.5% missing, NaN) turn
+   into dosages: a tenth of the entries get a Gaussian imputation noise,
+   all are clipped to [0, 2] and rounded to 0.001, and the variants
+   DS_TYPED keep their hard calls (typed variants: integer-valued, so
+   their blocks ship f32).  ``assoc_spa`` from phase 4's model in blocks
+   of 256, so the three-stage pipeline runs: no kernel launches (the dense
+   f64 route), every p-value in [0, 1], some rows through SPA, the first
+   block on the CPU within 1e-10 relative with the same NaN pattern and
+   SPA set; the stage sums, variants/s, bytes shipped and peak device
+   memory are printed, and the dense phase 1 of one block is timed by CUDA
+   events beside its bound (the larger of its f64 bytes at 3.35 TB/s and
+   its f64 operations at 34 TFLOP/s).  Then the quantitative model's scan
+   of the same file, with the same checks (nothing to SPA);
+12. the dense route against the packed route: ``dsnode="$dosage_alt"``
+   over phase 7's GDS from phase 4's model; its table equals phase 7's
+   packed table within 1e-10 relative, the same variants and SPA set;
+   then ``assoc_spa_user`` over phase 11's first 256 dosages in model
+   order, served from a numpy callback, equal within 1e-12 to phase 11's
+   scan of the same 256 variants on the card (a scan of the whole file
+   batches its SPA rows across blocks, which moves the last bits);
+13. the gene tests over the DS file: 32 units of 32 contiguous variants;
+   ``assoc_acat_o`` from the binary model and ``assoc_burden`` from the
+   quantitative one on the card: every p-value in [0, 1], the first 8
+   units on the CPU within 1e-10 with the same NaN pattern; the rows sent
+   the packed way (B5/B4 or B3, launched once per payload) and the dense
+   way are printed, with the launches;
+14. R files: phase 4's model saved as ``.rds`` and ``.rda`` and loaded
+   back; the scan of phase 7's first block from each reloaded model
+   equals the in-memory model's bit for bit, B3 launched once; one scan
+   table saved as ``.rds`` reads back equal with the port's ``read_rds``;
+15. fit options at the small fit's size (2,000 x 1,000, half of the
+   markers rare, MAF 0.002-0.01): ``var_ratio_mac_cat=(10.5, 20.5)`` on
+   the card and on the CPU within 1e-8, the same markers in each
+   category; then the small binary fit of phase 5 with ``checkpoint=``,
+   killed in outer iteration 2 (a wrapped ``_fit_tau_binary`` raises) and
+   resumed on the card: within 1e-8 of the uninterrupted card fit, with
+   equal outer iterations and the checkpoint files gone.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Data is made from a fixed seed; the
@@ -125,11 +168,23 @@ RTOL_FIT = 1e-8         # card vs CPU small fit
 FORMULA = "y ~ x1 + x2 + x3"
 FORMULA_Q = "yq ~ x1 + x2 + x3"   # the quantitative phenotype of the fit data
 H2_Q = 0.4              # its heritability
+N_DS = 1024             # imputed variants of the DS phase
+DS_BLOCK = 256          # its scan blocks
+DS_ASSOC = 8            # DS variants tied to the phenotype
+DS_TYPED = (256, 640)   # typed (integer-valued) DS variants
+DS_NOISY, DS_NOISE = 0.1, 0.15   # share of noisy dosages, the noise's sd
+DS_UNITS, DS_UNIT, DS_CPU_UNITS = 32, 32, 8   # DS gene units, their size,
+#                                              units held against the CPU
+RTOL_USER = 1e-12       # assoc_spa_user against the DS scan's rows
+CAT_EDGES = (10.5, 20.5)  # MAC categories of the categorized fit
+RARE_SHARE = 0.5        # rare GRM markers of the categorized fit's data
+F64_OPS_S = 34e12       # H100 SXM FP64 peak outside the tensor cores
 SOURCES = ["indicator_dot_2bit", "plane_dot", "indicator_dot", "decode_codes"]
 B4_SHAPES = [(37, 1031), (256, N_SAMPLES)]     # B, N at C = 128
 B5_ROWS = (256, 2048)   # rare-variant streams at N = N_SAMPLES
 N_AGG = 16_384          # variants of the aggregate phase's GDS
 N_UNITS = 512           # gene units of 8-64 contiguous variants
+N_UNITS_RUN = 256       # the units the aggregate tests run (the first)
 ENRICHED_UNITS = (1, 40, 100, 170, 250, 330, 410, 490)
 AGG_SUB, AGG_CPU = 64, 32   # units of the burden/ACAT-V and CPU checks
 RTOL_AGG = 1e-12        # burden and ACAT-V against ACAT-O on the card
@@ -527,13 +582,14 @@ def make_rare_codes(n_variants: int, n_samples: int, seed: int,
     return codes
 
 
-def make_data(y: np.ndarray, n_variants: int, device, seed: int):
+def make_data(y: np.ndarray, n_variants: int, device, seed: int,
+              n_assoc: int = N_ASSOC):
     """int8 codes [M, N] of the scan, for the phenotype ``y`` [N].
 
     Genotypes are drawn on ``device`` in chunks (two alleles per sample
     against the variant's ALT frequency): 25% rare (MAF 0.0005-0.01,
     log-uniform), 15% low-frequency (0.01-0.05), the rest common
-    (0.05-0.5), a tenth of them ALT-major; the first N_ASSOC variants
+    (0.05-0.5), a tenth of them ALT-major; the first ``n_assoc`` variants
     carry the ALT allele more often in cases."""
     import torch
     rng = np.random.default_rng(seed)
@@ -553,10 +609,10 @@ def make_data(y: np.ndarray, n_variants: int, device, seed: int):
         e = min(s + step, n_variants)
         p = torch.as_tensor(af[s:e], dtype=torch.float32,
                             device=device)[:, None].expand(e - s, n_samples)
-        if s < N_ASSOC:
+        if s < n_assoc:
             # case enrichment from 2% to 24%: p-values from ~0.05 down
             # past 1e-100
-            k = min(N_ASSOC, e) - s
+            k = min(n_assoc, e) - s
             boost = torch.zeros(e - s, 1, device=device)
             boost[:k, 0] = 0.02 * 1.18 ** torch.arange(k, device=device)
             p = torch.clamp(p * (1 + boost * y_dev[None, :]), max=0.95)
@@ -570,10 +626,36 @@ def make_data(y: np.ndarray, n_variants: int, device, seed: int):
     return codes
 
 
+def make_dosages(codes: np.ndarray, device, seed: int) -> np.ndarray:
+    """f64 imputed dosages [M, N] from hard calls [M, N] (3 = missing),
+    drawn on ``device`` in chunks: a share DS_NOISY of the entries gets a
+    Gaussian imputation noise of sd DS_NOISE, every dosage is clipped to
+    [0, 2] and rounded to 0.001 (as an imputed VCF's DS field carries
+    it); NaN where the call is missing; the variants in DS_TYPED keep
+    their hard calls."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = np.empty(codes.shape, np.float64)
+    step = 128
+    for s in range(0, len(codes), step):
+        c = torch.as_tensor(codes[s : s + step], device=device)
+        g = c.to(torch.float64)
+        noisy = torch.rand(c.shape, generator=gen, device=device) < DS_NOISY
+        noise = torch.randn(c.shape, generator=gen, device=device,
+                            dtype=torch.float64) * DS_NOISE
+        d = torch.round(torch.clamp(g + noise * noisy, 0.0, 2.0) * 1000) \
+            / 1000
+        v = torch.arange(s, s + len(c), device=device)[:, None]
+        d = torch.where((v >= DS_TYPED[0]) & (v < DS_TYPED[1]), g, d)
+        out[s : s + step] = torch.where(c == 3, torch.nan, d).cpu().numpy()
+    return out
+
+
 def with_extra_samples(codes: np.ndarray, sample_id: np.ndarray,
                        seed: int):
-    """``codes`` [M, N] with N_EXTRA random sample columns that the model
-    lacks inserted at shuffled positions, and the GDS's sample ids."""
+    """``codes`` [M, N] (hard calls or dosages) with N_EXTRA random sample
+    columns that the model lacks inserted at shuffled positions, and the
+    GDS's sample ids."""
     rng = np.random.default_rng(seed)
     at = np.sort(rng.integers(0, codes.shape[1] + 1, N_EXTRA))
     extra = rng.integers(0, 3, (codes.shape[0], N_EXTRA)).astype(np.int8)
@@ -582,7 +664,8 @@ def with_extra_samples(codes: np.ndarray, sample_id: np.ndarray,
     return np.insert(codes, at, extra, axis=1), ids
 
 
-def make_fit_data(n_samples: int, n_variants: int, device, seed: int):
+def make_fit_data(n_samples: int, n_variants: int, device, seed: int,
+                  rare_share: float = 0.0):
     """(int8 codes [M, N], data dict) of a polygenic binary trait ``y``, as
     bench.py's fit data: allele frequencies uniform in 0.05-0.5, effects
     giving a genetic variance of 0.6 on the logit scale, three covariates
@@ -590,10 +673,16 @@ def make_fit_data(n_samples: int, n_variants: int, device, seed: int):
     set missing.  The column ``yq`` is a quantitative trait from the same
     genetic values and covariates, heritability H2_Q, with a right-skewed
     noise (log-normal, as for BMI), drawn after ``y`` from the same
-    stream, so that ``y`` is the same with or without it."""
+    stream, so that ``y`` is the same with or without it.  A share
+    ``rare_share`` of the variants, drawn from another stream, has allele
+    frequencies 0.002-0.01 instead."""
     import torch
     rng = np.random.default_rng(seed)
     af = rng.uniform(0.05, 0.5, n_variants)
+    if rare_share:
+        rare_rng = np.random.default_rng(seed + 1)
+        rare = rare_rng.random(n_variants) < rare_share
+        af[rare] = rare_rng.uniform(0.002, 0.01, int(rare.sum()))
     X = np.column_stack([np.ones(n_samples),
                          rng.normal(size=(n_samples, N_COV))])
     beta = rng.normal(size=n_variants) * np.sqrt(0.6 / n_variants) \
@@ -665,16 +754,18 @@ def profile_product(device, gen) -> dict:
     return dict(ms=ms, kernels=dict(top))
 
 
-def fit(gds: str, data: dict, device: str, quant: bool = False):
+def fit(gds: str, data: dict, device: str, quant: bool = False, **cfg):
     """(model, instrument dict) of one fit_null_glmm run, of the binary
     trait ``y`` or (``quant``) the quantitative ``yq`` with the default
-    ``inv_norm``; the dict also holds its wall seconds."""
+    ``inv_norm``; ``cfg`` holds further NullModelConfig fields; the dict
+    also holds its wall seconds."""
     import torch
     from saigegds_tpu_torch import NullModelConfig, fit_null_glmm
 
     inst = {}
     t0 = time.perf_counter()
-    cfg = NullModelConfig(trait_type="quantitative" if quant else "binary")
+    cfg = NullModelConfig(trait_type="quantitative" if quant else "binary",
+                          **cfg)
     model = fit_null_glmm(FORMULA_Q if quant else FORMULA, data, gds, cfg,
                           instrument=inst, device=device)
     if device == "cuda":
@@ -742,15 +833,16 @@ def compare_fits(gpu, cpu, inst_gpu: dict, inst_cpu: dict) -> float:
 
 
 def scan(gds: str, model, device: str, variant_mask=None,
-         packed_2bit: bool = True):
+         packed_2bit: bool = True, block: int = BLOCK, dsnode: str = ""):
     """(table, instrument dict, wall seconds) of one assoc_spa run."""
     import torch
     from saigegds_tpu_torch import ScanConfig, assoc_spa
 
     inst = {}
     t0 = time.perf_counter()
-    tab = assoc_spa(gds, model, ScanConfig(block_size=BLOCK,
-                                           packed_2bit=packed_2bit),
+    tab = assoc_spa(gds, model, ScanConfig(block_size=block,
+                                           packed_2bit=packed_2bit,
+                                           dsnode=dsnode),
                     variant_mask=variant_mask, instrument=inst,
                     device=device)
     if device == "cuda":
@@ -788,6 +880,33 @@ def compare_tables(gpu: dict, cpu: dict) -> float:
     if worst > RTOL:
         raise AssertionError(f"card vs CPU max relative error {worst:.3e} "
                              f"> {RTOL}")
+    return worst
+
+
+def compare_dense(got: dict, want: dict, rtol: float) -> float:
+    """Rows of ``want`` against the same rows of ``got`` where a dense f64
+    route is involved: ids, counts, converged flags and the SPA set
+    (``p.norm <= spa_pval``) exact; AF.alt, mac and the statistics within
+    ``rtol`` with the same NaN pattern (f64 sums over samples run in
+    another order on each side)."""
+    if list(got) != list(want):
+        raise AssertionError("column order differs")
+    sel = np.isin(got["id"], want["id"])
+    if sel.sum() != len(want["id"]):
+        raise AssertionError("the table lacks rows of the other")
+    for c in ("id", "chr", "pos", "rs.id", "ref", "alt", "num",
+              "converged"):
+        if c in want and not np.array_equal(np.asarray(got[c])[sel],
+                                            np.asarray(want[c])):
+            raise AssertionError(f"column {c} differs")
+    if "p.norm" in want and not np.array_equal(got["p.norm"][sel] <= 0.05,
+                                               want["p.norm"] <= 0.05):
+        raise AssertionError("the SPA sets differ")
+    worst = max(max_rel(got[c][sel], want[c], c)
+                for c in ("AF.alt", "mac", "pval", "p.norm", "beta", "SE")
+                if c in want)
+    if worst > rtol:
+        raise AssertionError(f"max relative error {worst:.3e} > {rtol}")
     return worst
 
 
@@ -846,7 +965,9 @@ def aggregate(model, y: np.ndarray, work: str) -> dict:
         f"{np.median(nnz):.0f}), {len(units)} units of {sizes.min()}-"
         f"{sizes.max()} variants, GDS "
         f"{os.path.getsize(gds) / 1e6:.0f} MB; drawn in {t_gen:.1f} s, "
-        f"{time.perf_counter() - t0:.1f} s with the write")
+        f"{time.perf_counter() - t0:.1f} s with the write; the tests run "
+        f"the first {N_UNITS_RUN} units")
+    units = shard_units(units, 0, N_UNITS // N_UNITS_RUN)
 
     cfg = AggregateConfig()
     torch.cuda.reset_peak_memory_stats()
@@ -887,7 +1008,7 @@ def aggregate(model, y: np.ndarray, work: str) -> dict:
 
     # burden and ACAT-V over the first units against ACAT-O's columns
     t0 = time.perf_counter()
-    first = shard_units(units, 0, N_UNITS // AGG_SUB)
+    first = shard_units(units, 0, N_UNITS_RUN // AGG_SUB)
     worst_sub = 0.0
     for fn, tag in ((assoc_burden, "pval.b"), (assoc_acat_v, "pval.v")):
         sub = fn(gds, model, first, cfg, device="cuda")
@@ -902,8 +1023,9 @@ def aggregate(model, y: np.ndarray, work: str) -> dict:
 
     # the first units on the CPU
     t0 = time.perf_counter()
-    cpu = assoc_acat_o(gds, model, shard_units(units, 0, N_UNITS // AGG_CPU),
-                       cfg, device="cpu")
+    cpu = assoc_acat_o(gds, model,
+                       shard_units(units, 0, N_UNITS_RUN // AGG_CPU), cfg,
+                       device="cpu")
     if not np.array_equal(cpu["numvar"], tab["numvar"][:AGG_CPU]):
         raise AssertionError("numvar differs between card and CPU")
     worst_cpu = max(max_rel(tab[c][:AGG_CPU], cpu[c], c) for c in pcols)
@@ -952,7 +1074,7 @@ def quant_burden(model, gds: str, units) -> dict:
              for k in ("fetch_s", "tally_s", "encode_s", "upload_s",
                        "wait_s")}
     log(f"quantitative burden on the card: {len(units)} units, {wall:.2f} s "
-        f"wall ({wall * N_UNITS / len(units):.2f} s per {N_UNITS} units); "
+        f"wall; "
         f"spans {json.dumps(spans)}, device time of phase 1 "
         f"{inst.get('device_s', 0.0):.3f} s; payloads {json.dumps(pay)}; "
         f"launches B5 {counts['decode_codes']}, B4 "
@@ -962,7 +1084,7 @@ def quant_burden(model, gds: str, units) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     t0 = time.perf_counter()
-    first = shard_units(units, 0, N_UNITS // AGG_CPU)
+    first = shard_units(units, 0, N_UNITS_RUN // AGG_CPU)
     cpu = assoc_burden(gds, model, first, cfg, device="cpu")
     if not np.array_equal(cpu["numvar"], tab["numvar"][:AGG_CPU]):
         raise AssertionError("numvar differs between card and CPU")
@@ -981,6 +1103,337 @@ def quant_burden(model, gds: str, units) -> dict:
     else:
         raise AssertionError("ACAT-O accepted a quantitative model")
     return dict(launches=counts, wall=wall)
+
+
+def dense_phase1_ms(model, ds: np.ndarray, device) -> dict:
+    """The dense phase 1 of one DS_BLOCK block of dosages (model order) on
+    the card, by CUDA events, beside its bound: the block's f64 bytes and
+    the model's vectors read once at the device memory rate, against its
+    f64 operations (the imputation, the covariate projection of 4K + 12
+    per entry, the score and variance sums) at the FP64 peak."""
+    import torch
+    from saigegds_tpu_torch.ops.score import ScanParams, score_stats_binary
+
+    sm = model.scan_model(device=device)
+    params = ScanParams(maf=-1.0, mac=10.0, missing=0.1, spa_pval=0.05)
+    G = torch.as_tensor(ds[:DS_BLOCK], device=device)
+    run = lambda: score_stats_binary(sm, params, G)
+    run()
+    ms = median_ms(run, 5)
+    B, N = G.shape
+    K = sm.XV.shape[0]
+    nbytes = B * N * 8 + (2 + 2 * K) * N * 8
+    ops = B * N * (4 * K + 12)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / F64_OPS_S * 1e3
+    out = dict(ms=ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"dense phase 1, one block of {B} dosage rows x {N} samples (f64, "
+        f"K = {K}): {ms:.3f} ms (median of 5, CUDA events), bound "
+        f"{out['bound_ms']:.3f} ms by {out['bound_by']} ({nbytes / 1e9:.3f} "
+        f"GB at 3.35 TB/s, {ops / 1e9:.2f} GFLOP at 34 TFLOP/s), "
+        f"{out['bound_ms'] / ms * 100:.1f}% of the bound")
+    del G
+    return out
+
+
+def ds_scan(y: np.ndarray, sample_id: np.ndarray, model, model_q,
+            work: str, device) -> dict:
+    """Phase 11: the scans of an imputed DS node at full width, on the
+    card and (first block) on the CPU."""
+    import torch
+    from saigegds_tpu_torch.io.gds_write import write_dosage_gds
+
+    t0 = time.perf_counter()
+    ds = make_dosages(make_data(y, N_DS, device, SEED + 6, n_assoc=DS_ASSOC),
+                      device, SEED + 7)
+    ds_x, ids = with_extra_samples(ds, sample_id, SEED + 8)
+    gds = os.path.join(work, "dosage.gds")
+    write_dosage_gds(gds, ds_x, sample_id=ids, compress="ZIP_ra")
+    del ds_x
+    head = ds[:, :4096]
+    frac = np.mean(np.any(np.isfinite(head) & (head != np.floor(head)),
+                          axis=1))
+    log(f"DS setup: {N_DS} imputed variants x {len(ids)} samples "
+        f"({N_SAMPLES} in the model, {N_EXTRA} outside it at shuffled "
+        f"positions), {np.isnan(ds).mean() * 100:.2f}% missing, "
+        f"{frac * 100:.0f}% of the variants fractional, variants "
+        f"{DS_TYPED[0]}-{DS_TYPED[1] - 1} typed; GDS "
+        f"{os.path.getsize(gds) / 1e6:.0f} MB, "
+        f"{time.perf_counter() - t0:.1f} s")
+    phase1 = dense_phase1_ms(model, ds, device)
+
+    mask = np.zeros(N_DS, bool)
+    mask[:DS_BLOCK] = True
+    n_blocks = N_DS // DS_BLOCK
+    tables = {}
+    for name, m in (("binary", model), ("quantitative", model_q)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        tab, inst, wall = scan(gds, m, "cuda", block=DS_BLOCK)
+        expect_launches(f"the DS scan ({name})", {})
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_table(tab)
+        if name == "binary":
+            refined = int(np.sum(tab["pval"] != tab["p.norm"]))
+            if inst["spa_n"] == 0 or refined == 0:
+                raise AssertionError("no DS variant went through SPA")
+        elif inst["spa_n"] or "p.norm" in tab:
+            raise AssertionError("a quantitative DS variant went to SPA")
+        if len(inst["gather_s"]) != n_blocks:
+            raise AssertionError("the DS scan did not gather every block")
+        stages = {k: round(float(np.sum(inst[k])), 3)
+                  for k in ("decode_s", "gather_s", "pack_s", "upload_s",
+                            "dispatch_s", "drain_s")}
+        f32 = sum(b == DS_BLOCK * N_SAMPLES * 4 for b in inst["bytes"])
+        log(f"DS scan on the card ({name}): {len(tab['pval'])} of {N_DS} "
+            f"variants tested, {inst['spa_n']} through SPA, min p "
+            f"{tab['pval'].min():.3e}, {wall:.2f} s wall, "
+            f"{N_DS / wall:.1f} variants/s; {f32} of {n_blocks} blocks "
+            f"shipped f32, {sum(inst['bytes']) / 1e9:.2f} GB in all; peak "
+            f"device memory {peak:.2f} GiB")
+        log(f"  stage sums (s, stages overlap): {json.dumps(stages)}, "
+            f"spa_s {inst['spa_s']:.3f}; per block: decode "
+            f"{stages['decode_s'] / n_blocks:.3f} s, pack (gather and "
+            f"f32 check) {stages['pack_s'] / n_blocks:.3f} s, upload "
+            f"{stages['upload_s'] / n_blocks:.3f} s")
+        cpu, _, wall_cpu = scan(gds, m, "cpu", variant_mask=mask,
+                                block=DS_BLOCK)
+        worst = compare_dense(tab, cpu, RTOL)
+        log(f"first DS block on the CPU ({name}): {len(cpu['pval'])} rows "
+            f"within {worst:.3e} of the card (limit {RTOL}), the same NaN "
+            f"pattern and SPA set, {wall_cpu:.1f} s")
+        tables[name] = dict(tab=tab, wall=wall, stages=stages,
+                            spa_s=inst["spa_s"], peak_gib=peak)
+    # the first block alone on the card, for assoc_spa_user (phase 12):
+    # SPA batches the flagged rows of the whole scan, so a row of the
+    # whole scan and of a scan of its block differ in the last bits
+    tables["binary"]["first"], _, _ = scan(gds, model, "cuda",
+                                           variant_mask=mask, block=DS_BLOCK)
+    return dict(gds=gds, first=ds[:DS_BLOCK].copy(), tables=tables,
+                phase1=phase1)
+
+
+def dense_vs_packed(gds7: str, tab7: dict, model, ds: dict):
+    """Phase 12: the dense route over phase 7's hard calls against phase
+    7's packed table; assoc_spa_user against the DS scan."""
+    from saigegds_tpu_torch import ScanConfig, assoc_spa_user
+
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tab, inst, wall = scan(gds7, model, "cuda", dsnode="$dosage_alt")
+    expect_launches("the $dosage_alt scan", {})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.array_equal(tab["id"], tab7["id"]):
+        raise AssertionError("$dosage_alt and the packed route tested "
+                             "different variants")
+    worst = compare_dense(tab, tab7, RTOL)
+    log(f"$dosage_alt scan of phase 7's GDS on the card: {len(tab['id'])} "
+        f"variants, {inst['spa_n']} through SPA, {wall:.2f} s wall "
+        f"({N_VARIANTS / wall:.1f} variants/s, decode "
+        f"{np.sum(inst['decode_s']):.2f} s, pack "
+        f"{np.sum(inst['pack_s']):.2f} s, upload "
+        f"{np.sum(inst['upload_s']):.2f} s, SPA {inst['spa_s']:.2f} s), "
+        f"{sum(b == BLOCK * N_SAMPLES * 4 for b in inst['bytes'])} of "
+        f"{len(inst['bytes'])} blocks shipped f32; peak device memory "
+        f"{peak:.2f} GiB; the packed table within {worst:.3e} (limit "
+        f"{RTOL}), the same SPA set")
+
+    first = ds["first"]
+    want = dict(ds["tables"]["binary"]["first"])
+    t0 = time.perf_counter()
+    reset_launches()
+    got = assoc_spa_user(lambda a, b: first[a:b], DS_BLOCK, model,
+                         ScanConfig(block_size=DS_BLOCK), device="cuda")
+    expect_launches("assoc_spa_user", {})
+    for c in ("chr", "pos", "rs.id", "ref", "alt"):
+        del want[c]
+    worst_u = compare_dense(got, want, RTOL_USER)
+    log(f"assoc_spa_user over the first {DS_BLOCK} dosages from a numpy "
+        f"callback: {len(got['id'])} rows within {worst_u:.3e} of the DS "
+        f"scan of the same variants (limit {RTOL_USER}), "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def ds_gene_tests(gds: str, model, model_q):
+    """Phase 13: ACAT-O (binary) and the burden test (quantitative) over DS
+    units on the card, the first units on the CPU."""
+    import torch
+    from saigegds_tpu_torch import (AggregateConfig, assoc_acat_o,
+                                    assoc_burden, shard_units,
+                                    units_from_groups)
+    from saigegds_tpu_torch.io.seqarray import SeqData
+
+    groups = {f"ds{u:02d}": list(range(u * DS_UNIT + 1, (u + 1) * DS_UNIT + 1))
+              for u in range(DS_UNITS)}
+    units = units_from_groups(SeqData(gds), groups)
+    cfg = AggregateConfig()
+    out = {}
+    for fn, m, name in ((assoc_acat_o, model, "ACAT-O"),
+                        (assoc_burden, model_q, "quantitative burden")):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        inst = {}
+        t0 = time.perf_counter()
+        tab = fn(gds, m, units, cfg, instrument=inst, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pay = inst["payloads"]
+        counts = expect_launches(f"{name} over DS units", {
+            "decode_codes": pay.get("single_sparse", 0),
+            "indicator_dot": pay.get("single_sparse", 0),
+            "indicator_dot_2bit": pay.get("single_2bit", 0)})
+        if name == "ACAT-O" and not (inst.get("rows_packed")
+                                     and sum(counts.values())):
+            raise AssertionError(f"no DS row went the packed way: {pay}")
+        pcols = [c for c in tab if c.startswith("pval")]
+        for c in pcols:
+            p = tab[c][np.isfinite(tab[c])]
+            if not (len(p) and np.all((p >= 0) & (p <= 1))):
+                raise AssertionError(f"{c}: no finite p-value, or outside "
+                                     f"[0, 1]")
+        spans = {k: round(inst.get(k, 0.0), 3)
+                 for k in ("fetch_s", "tally_s", "encode_s", "upload_s",
+                           "wait_s", "spa_s")}
+        log(f"{name} over {len(units)} DS units on the card: {wall:.2f} s "
+            f"wall; rows packed {inst.get('rows_packed', 0)}, dense "
+            f"{inst.get('rows_dense', 0)}; payloads {json.dumps(pay)}; "
+            f"launches B5 {counts['decode_codes']}, B4 "
+            f"{counts['indicator_dot']}, B3 {counts['indicator_dot_2bit']}; "
+            f"spans {json.dumps(spans)}, {inst.get('spa_n', 0)} rows through "
+            f"SPA, device time of phase 1 {inst.get('device_s', 0.0):.3f} s; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        t0 = time.perf_counter()
+        cpu = fn(gds, m, shard_units(units, 0, DS_UNITS // DS_CPU_UNITS),
+                 cfg, device="cpu")
+        worst = max(max_rel(tab[c][:DS_CPU_UNITS], cpu[c], c) for c in pcols)
+        if worst > RTOL:
+            raise AssertionError(f"{name} over DS units card vs CPU: "
+                                 f"relative error {worst:.3e} > {RTOL}")
+        log(f"first {DS_CPU_UNITS} DS units on the CPU: every p-value column "
+            f"within {worst:.3e} of the card (limit {RTOL}), "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[name] = dict(wall=wall, launches=counts,
+                         rows_packed=inst.get("rows_packed", 0),
+                         rows_dense=inst.get("rows_dense", 0))
+    return out
+
+
+def r_files(model, gds7: str, work: str):
+    """Phase 14: the model through .rds and .rda, and a table through
+    .rds."""
+    from saigegds_tpu_torch import NullModel, save_assoc
+    from saigegds_tpu_torch.io.rds import read_rds, strip
+
+    mask = np.zeros(N_VARIANTS, bool)
+    mask[:BLOCK] = True
+    want, _, _ = scan(gds7, model, "cuda", variant_mask=mask)
+    for ext in (".rds", ".rda"):
+        path = os.path.join(work, "model" + ext)
+        t0 = time.perf_counter()
+        model.save(path)
+        t1 = time.perf_counter()
+        back = NullModel.load(path)
+        t2 = time.perf_counter()
+        reset_launches()
+        got, _, _ = scan(gds7, back, "cuda", variant_mask=mask)
+        expect_launches(f"the scan from the {ext} model",
+                        {"indicator_dot_2bit": 1})
+        for c in want:
+            if not np.array_equal(got[c], want[c]):
+                raise AssertionError(f"the scan from the {ext} model "
+                                     f"differs in column {c}")
+        log(f"model {ext}: {os.path.getsize(path) / 1e6:.1f} MB, saved in "
+            f"{t1 - t0:.1f} s, loaded in {t2 - t1:.1f} s; the scan of phase "
+            f"7's first block from it equals the in-memory model's bit for "
+            f"bit")
+    path = os.path.join(work, "scan.rds")
+    save_assoc(want, path)
+    obj = read_rds(path)
+    for c in want:
+        if not np.array_equal(np.asarray(strip(obj[c])), want[c]):
+            raise AssertionError(f"scan.rds column {c} differs")
+    log(f"scan table .rds ({len(want['id'])} rows, "
+        f"{os.path.getsize(path) / 1e3:.0f} kB) reads back equal")
+
+
+def fit_options(work: str, device, gds_s: str, data_s: dict,
+                small: tuple):
+    """Phase 15: MAC-categorized variance ratios and a resumed fit at the
+    small fit's size."""
+    from saigegds_tpu_torch.io.gds_write import write_seqarray_gds
+    from saigegds_tpu_torch.models import fitnull
+
+    n_s, m_s = FIT_SMALL
+    codes_c, data_c = make_fit_data(n_s, m_s, device, SEED + 9,
+                                    rare_share=RARE_SHARE)
+    gds_c = os.path.join(work, "fit_cat.gds")
+    write_seqarray_gds(gds_c, codes_c)
+    m_gpu, inst_gpu = fit(gds_c, data_c, "cuda", maf=0.0,
+                          var_ratio_mac_cat=CAT_EDGES)
+    m_cpu, inst_cpu = fit(gds_c, data_c, "cpu", maf=0.0,
+                          var_ratio_mac_cat=CAT_EDGES)
+    worst = compare_fits(m_gpu, m_cpu, inst_gpu, inst_cpu)
+    cat = m_cpu.var_ratio["mac_cat"]
+    if not np.array_equal(m_gpu.var_ratio["mac_cat"], cat):
+        raise AssertionError("MAC categories differ between card and CPU")
+    per_cat = np.bincount(np.asarray(cat, int), minlength=len(CAT_EDGES) + 1)
+    if not per_cat.all():
+        raise AssertionError(f"an empty MAC category: {per_cat.tolist()}")
+    log(f"MAC-categorized fit ({n_s} x {m_s}, edges {list(CAT_EDGES)}): "
+        f"markers per category {per_cat.tolist()}, the same on both; card "
+        f"vs CPU max relative error {worst:.3e} (limit {RTOL_FIT}); "
+        f"{inst_gpu['wall_s']:.1f} s on the card, {inst_cpu['wall_s']:.1f} s "
+        f"on the CPU")
+
+    class Crash(RuntimeError):
+        pass
+
+    ck = os.path.join(work, "ck_small")
+    real = fitnull._fit_tau_binary
+    calls = [0]
+
+    def crash(*a, **k):
+        calls[0] += 1
+        if calls[0] == 2:
+            raise Crash("outer iteration 2")
+        return real(*a, **k)
+
+    fitnull._fit_tau_binary = crash
+    try:
+        fit(gds_s, data_s, "cuda", checkpoint=ck)
+    except Crash:
+        pass
+    else:
+        raise AssertionError("the wrapped fit did not crash")
+    finally:
+        fitnull._fit_tau_binary = real
+    if not os.path.exists(ck + ".fit.npz"):
+        raise AssertionError("no checkpoint after outer iteration 1")
+    m_res, inst_res = fit(gds_s, data_s, "cuda", checkpoint=ck)
+    m_ref, inst_ref = small
+    if inst_res["outer_iterations"] != inst_ref["outer_iterations"]:
+        raise AssertionError("the resumed fit ran another iteration count")
+    if not np.array_equal(m_res.var_ratio["id"], m_ref.var_ratio["id"]):
+        raise AssertionError("the resumed fit chose other markers")
+    worst_r = max(max_rel(getattr(m_res, k), getattr(m_ref, k), k)
+                  for k in ("tau", "coefficients"))
+    worst_r = max(worst_r, max_rel(m_res.var_ratio["ratio"],
+                                   m_ref.var_ratio["ratio"], "ratio"))
+    if worst_r > RTOL_FIT:
+        raise AssertionError(f"resumed fit vs uninterrupted: relative error "
+                             f"{worst_r:.3e} > {RTOL_FIT}")
+    left = [f for f in os.listdir(work) if f.startswith("ck_small")]
+    if left:
+        raise AssertionError(f"checkpoint files left: {left}")
+    log(f"fit killed in outer iteration 2 and resumed on the card: within "
+        f"{worst_r:.3e} of the uninterrupted card fit (limit {RTOL_FIT}; the "
+        f"missing-pair corrections are f64 atomics, so not bit for bit), "
+        f"{inst_res['outer_iterations']} outer iterations on both, "
+        f"checkpoint files removed; resume {inst_res['wall_s']:.1f} s")
 
 
 def main() -> int:
@@ -1037,10 +1490,13 @@ def main() -> int:
 
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        model, inst = fit(gds_fit, data, "cuda")
+        ck = os.path.join(work, "ck_fit")
+        model, inst = fit(gds_fit, data, "cuda", checkpoint=ck)
         fit_launches = expect_launches("the fit", {
             "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"]})
         check_fit(model)
+        if [f for f in os.listdir(work) if f.startswith("ck_fit")]:
+            raise AssertionError("the fit left its checkpoint files")
         log(f"fit on the card: tau {model.tau.tolist()}, "
             f"{inst['outer_iterations']} outer iterations, "
             f"{inst['pcg_iterations']} PCG iterations, {inst['matvecs']} GRM "
@@ -1049,8 +1505,9 @@ def main() -> int:
             f"wall = ingest {inst['ingest_s']:.1f} + AI-REML "
             f"{inst['aireml_s']:.1f} + variance ratio "
             f"{inst['var_ratio_s']:.1f} s ({len(model.var_ratio['ratio'])} "
-            f"markers, mean ratio {model.mean_var_ratio:.4f}); peak device "
-            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"markers, mean ratio {model.mean_var_ratio:.4f}), checkpoints "
+            f"on and removed after; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
         profile_product(device, gen)
 
@@ -1065,6 +1522,7 @@ def main() -> int:
         m_cpu, inst_cpu = fit(gds_s, data_s, "cpu")
         check_fit(m_cpu)
         worst_fit = compare_fits(m_gpu, m_cpu, inst_gpu, inst_cpu)
+        small_binary = (m_gpu, inst_gpu)
         log(f"small fit ({n_s} x {m_s}): card vs CPU max relative error "
             f"{worst_fit:.3e} (limit {RTOL_FIT}), tau_G "
             f"{m_cpu.tau[1]:.6f}, {inst_cpu['outer_iterations']} outer and "
@@ -1161,7 +1619,8 @@ def main() -> int:
         worst_i8 = compare_tables(tab_i8, tab_cpu)
         log(f"first block on the card, int8 route: one B4 launch, the CPU's "
             f"table within {worst_i8:.3e} (limit {RTOL}), {wall_i8:.1f} s")
-        del tab, tab_cpu, tab_i8
+        tab7 = tab
+        del tab_cpu, tab_i8
 
         # 8. the scan from the quantitative model
         torch.cuda.reset_peak_memory_stats()
@@ -1203,6 +1662,22 @@ def main() -> int:
 
         # 10. the burden test of the quantitative model
         quant_burden(model_q, agg["gds"], agg["units"])
+
+        # 11. the scans of imputed dosages
+        ds = ds_scan(data["y"], data["sample.id"], model, model_q, work,
+                     device)
+
+        # 12. the dense route against the packed route; assoc_spa_user
+        dense_vs_packed(gds, tab7, model, ds)
+
+        # 13. the gene tests over the DS file
+        ds_gene_tests(ds["gds"], model, model_q)
+
+        # 14. R files
+        r_files(model, gds, work)
+
+        # 15. fit options at the small fit's size
+        fit_options(work, device, gds_s, data_s, small_binary)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

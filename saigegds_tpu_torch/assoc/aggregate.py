@@ -1,22 +1,26 @@
 """Aggregate (gene/region/set) association tests: burden, ACAT-V, ACAT-O.
 
 The counterpart of ``saigegds_tpu/assoc/aggregate.py`` over a GDS genotype
-node (the burden test for a binary or a quantitative trait, ACAT-V and
-ACAT-O for a binary one): ``seqAssocGLMM_spaBurden`` / ``spaACAT_V`` /
-``spaACAT_O`` (reference ``R/assoc_aggregate.r``; C engines
-src/saige_main.cpp:465-985).  Each unit's SNP codes are reduced to test
-vectors — weighted burden collapses, and single SNPs for ACAT-V — that run
-through the same score + SPA kernels as the single-variant scan.
+node or imputed dosages (the burden test for a binary or a quantitative
+trait, ACAT-V and ACAT-O for a binary one): ``seqAssocGLMM_spaBurden`` /
+``spaACAT_V`` / ``spaACAT_O`` (reference ``R/assoc_aggregate.r``; C
+engines src/saige_main.cpp:465-985).  Each unit's SNPs are reduced to
+test vectors — weighted burden collapses, and single SNPs for ACAT-V —
+that run through the same score + SPA kernels as the single-variant scan.
 
-Unit codes come from `_UnitSource` (random access to the GDS frames for
-big files).  The burden collapse runs on the device
+Unit rows come from `_UnitSource` (random access to the GDS frames for
+big files).  For hard calls the burden collapse runs on the device
 (`_Kernel.run_jobs` -> ``ops/score_packed.burden_score_packed``): a batch
 of units ships once, gap-coded sparse (kernel B5 decodes it) or 2-bit,
 and the weighted mean-impute + flip collapse is an affine map of the
 codes, so the host never uploads 8 B/sample rows.  ACAT-V's single SNPs
 stream as int8 code batches through ``_packed_parts`` (sparse: B5 then
-B4; 2-bit: B3).  SPA-flagged rows refine in bounded-memory flushes
-(`_SpaAccum`).  ``shard_units`` splits a unit list over hosts.
+B4; 2-bit: B3).  Dosages (a DS node, or ``dsnode="$dosage_alt"``) are
+collapsed on the host and stream as f64 rows through `_Kernel.run_stream`:
+a batch whose rows are all 0/1/2/NaN goes the packed way as codes, any
+other the dense f64 score test.  SPA-flagged rows refine in
+bounded-memory flushes (`_SpaAccum`).  ``shard_units`` splits a unit list
+over hosts.
 
 Semantics reproduced exactly:
 * per-SNP MAF/MAC from non-missing genotypes (``ds_mat_mafmac``, :486-524);
@@ -49,16 +53,17 @@ from ..io.seqarray import SeqData
 from ..models.nullmodel import NullModel
 from ..ops._cuda import check_device
 from ..ops.acat import beta_weights
-from ..ops.score import ScanModel, ScanParams, spa_refine_binary, \
-    stack_stats, unstack_stats
+from ..ops.score import ScanModel, ScanParams, score_stats_binary, \
+    score_stats_quant, spa_refine_binary, stack_stats, unstack_stats
 from ..ops.score_packed import BURDEN_S_CAP, burden_score_packed, \
     pack_scan_model, score_stats_binary_packed, score_stats_quant_packed
 from ..ops.sparse_codes import encode_sparse_rows
 from ..utils.stats import acat_p
-from .single import DEPTH, SPA_FLUSH_BYTES, _match_samples, _not_ported, \
-    _pack2_block, _packed_parts, _spa_cap, _spa_nnz, _to_device
+from .single import CHECK_ELEMS, DEPTH, SPA_FLUSH_BYTES, _match_samples, \
+    _pack2_block, _packed_parts, _shrink_f32, _spa_cap, _spa_nnz, _to_device
 
 SINGLE_FETCH = 512   # variants per random-access fetch in the singles stream
+MAX_SPAN = 8192      # variants per contiguous dosage read of a unit
 R_CAP = 64           # burden rows per batch (BURDEN_S_CAP source rows)
 _STATS = ("valid", "af", "mac", "num", "beta", "se", "pval")
 _SUMMARY = ("maf_avg", "maf_sd", "maf_min", "maf_max",
@@ -144,18 +149,56 @@ def _tick(inst: dict, key: str, t0: float):
     inst[key] = inst.get(key, 0.0) + time.perf_counter() - t0
 
 
-def _burden_collapse(codes: np.ndarray, weights: np.ndarray,
-                     t: "_CodeTallies") -> np.ndarray:
-    """Weighted burden dosage vector from int8 codes [S, N] (3 = missing)
-    and weights [S] -> [N] f64.
+def _maf_mac(ds: np.ndarray):
+    """Per-SNP minor AF / minor AC over non-missing dosages [S, N]."""
+    finite = np.isfinite(ds)
+    n = finite.sum(axis=1)
+    s = np.where(finite, ds, 0.0).sum(axis=1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        af = s / (2.0 * n)
+    maf = np.where(n > 0, np.minimum(af, 1.0 - af), np.nan)
+    mac = np.minimum(s, 2.0 * n - s)
+    return maf, mac
+
+
+def _burden_collapse(ds: np.ndarray, weights: np.ndarray,
+                     t: "_CodeTallies" = None) -> np.ndarray:
+    """Weighted burden dosage vector from f64 dosages [S, N] (NaN =
+    missing), or int8 codes [S, N] (3 = missing) with their tallies, and
+    weights [S] -> [N] f64.
 
     Per SNP: mean-impute missing, flip to minor allele when sum > n
     (``ds_mat_burden``, src/saige_main.cpp:526-610).  Reference quirks
-    kept: a non-finite weight skips the SNP ENTIRELY (:536), and an
+    kept: a non-finite weight skips the SNP ENTIRELY (:536); an
     all-missing SNP with a finite weight imputes its NaN mean into every
-    sample.  The JAX package sums the weighted [S, N] f64 matrix over its
-    first axis, one SNP after another; this adds the same terms in the
-    same order without building that matrix, so the result is the same."""
+    sample; and the mean/flip bookkeeping accumulates dosages into an
+    ``int`` (:590), so fractional dosages are floor-truncated for the
+    imputation mean and the flip decision while the contributions use the
+    raw values."""
+    if ds.dtype == np.int8:
+        return _burden_collapse_codes(ds, weights,
+                                      _CodeTallies(ds) if t is None else t)
+    finite = np.isfinite(ds)
+    n = finite.sum(axis=1)
+    # the reference's `int sum`: per-add truncation of nonnegative dosages
+    # onto an integer accumulator == sum of floors
+    s = np.where(finite, np.floor(ds), 0.0).sum(axis=1)
+    with np.errstate(invalid="ignore"):
+        mean = s / n
+    use = np.isfinite(weights)
+    flip = s > n
+    g = np.where(finite, ds, mean[:, None])
+    g = np.where(flip[:, None], 2.0 - g, g)
+    w = np.where(use, weights, 0.0)
+    return (np.where(use[:, None], g, 0.0) * w[:, None]).sum(axis=0)
+
+
+def _burden_collapse_codes(codes: np.ndarray, weights: np.ndarray,
+                           t: "_CodeTallies") -> np.ndarray:
+    """:func:`_burden_collapse` of int8 codes.  The JAX package sums the
+    weighted [S, N] f64 matrix over its first axis, one SNP after another;
+    this adds the same terms in the same order without building that
+    matrix, so the result is the same."""
     out = np.zeros(codes.shape[1])
     for s in np.flatnonzero(np.isfinite(weights)):
         c = codes[s]
@@ -164,6 +207,22 @@ def _burden_collapse(codes: np.ndarray, weights: np.ndarray,
             g = 2.0 - g
         out += g * weights[s]
     return out
+
+
+def _as_codes(G: np.ndarray) -> Optional[np.ndarray]:
+    """int8 codes (3 = missing) of f64 rows that are all 0/1/2/NaN, else
+    None.  Checked in chunks of rows, so a block with a fractional dosage
+    stops at its first such chunk."""
+    codes = np.empty(G.shape, np.int8)
+    step = max(1, CHECK_ELEMS // max(G.shape[-1], 1))
+    with np.errstate(invalid="ignore"):
+        for s in range(0, len(G), step):
+            g = G[s : s + step]
+            nan = np.isnan(g)
+            if not np.all(nan | ((g == np.floor(g)) & (g >= 0) & (g <= 2))):
+                return None
+            codes[s : s + step] = np.where(nan, 3, g)
+    return codes
 
 
 def _normalize(w: np.ndarray) -> np.ndarray:
@@ -260,24 +319,54 @@ def _maf_mac_summary(maf, mac):
 
 
 class _UnitSource:
-    """Bounded-memory int8 code rows for units: small files use the
-    whole-matrix cache, big ones random-access the GDS frames
-    (``SeqData.code_rows``).  ``cols`` (GDS columns of the model's
-    samples, or None) gathers the rows to the model's samples."""
+    """Bounded-memory rows for units.  Hard calls of a genotype node come
+    as int8 codes (:meth:`codes`): small files use the whole-matrix cache,
+    big ones random-access the GDS frames (``SeqData.code_rows``).
+    Dosages (a DS node, or ``dsnode``) come as f64 rows (:meth:`rows`).
+    ``cols`` (GDS columns of the model's samples, or None) gathers the
+    rows to the model's samples."""
 
     CACHE_LIMIT = 4 << 30
 
-    def __init__(self, seq: SeqData, inst: dict, cols=None):
+    def __init__(self, seq: SeqData, inst: dict, cols=None,
+                 dsnode: str = ""):
         self.seq, self.inst, self.cols = seq, inst, cols
+        self.dsnode = dsnode
+        self.geno = seq.has_genotype() and not dsnode
         self.small = seq.n_variants * seq.n_samples <= self.CACHE_LIMIT
+
+    @property
+    def n_cols(self) -> int:
+        return self.seq.n_samples if self.cols is None else len(self.cols)
+
+    def rows(self, idx) -> np.ndarray:
+        """f64 dosages [len(idx), N] (NaN = missing), N the model's
+        samples, read in contiguous spans of at most MAX_SPAN variants (one
+        min..max span of a scattered gene set could be chromosome-sized)."""
+        t0 = time.perf_counter()
+        idx = np.asarray(idx)
+        r = np.empty((len(idx), self.seq.n_samples))
+        idx_s = np.sort(idx)
+        pos_of = {v: i for i, v in enumerate(idx)}
+        c0 = 0
+        for k in range(1, len(idx_s) + 1):
+            if k == len(idx_s) or idx_s[k] - idx_s[c0] >= MAX_SPAN:
+                lo, hi = int(idx_s[c0]), int(idx_s[k - 1]) + 1
+                blk = self.seq.dosage_block(lo, hi, self.dsnode)
+                for v in idx_s[c0:k]:
+                    r[pos_of[v]] = blk[v - lo]
+                c0 = k
+        if self.cols is not None:
+            r = np.take(r, self.cols, axis=1)
+        _tick(self.inst, "fetch_s", t0)
+        return r
 
     def codes(self, idx) -> np.ndarray:
         """int8 codes [len(idx), N] (3 = missing), N the model's samples."""
         t0 = time.perf_counter()
         idx = np.asarray(idx)
         if len(idx) == 0:
-            r = np.empty((0, self.seq.n_samples if self.cols is None
-                          else len(self.cols)), np.int8)
+            r = np.empty((0, self.n_cols), np.int8)
         else:
             r = self.seq.code_matrix()[idx] if self.small \
                 else self.seq.code_rows(idx)
@@ -327,7 +416,8 @@ class _SpaAccum:
         for s in range(0, len(rows), B):
             Gi = Gs[s : s + B]
             res = spa_refine_binary(self.k.scan_model,
-                                    _to_device(Gi, self.k.device),
+                                    _to_device(_shrink_f32(Gi),
+                                               self.k.device),
                                     cap=_spa_cap(Gi))
             pending.append((rows[s : s + B],
                             torch.stack([res[0], res[1].to(torch.float64),
@@ -351,7 +441,9 @@ class _Kernel:
     ``spa_s``), ``device_s`` (CUDA-event time of each phase-1 call, on a
     card), ``spa_n`` (rows refined by SPA) and ``payloads``, a count of
     shipped payloads by route (``burden_sparse``, ``burden_2bit``,
-    ``single_sparse``, ``single_2bit``)."""
+    ``single_sparse``, ``single_2bit``, ``dense``), and the rows that
+    `run_stream` sent the packed way (``rows_packed``) and the dense way
+    (``rows_dense``)."""
 
     scan_model: ScanModel
     params: ScanParams
@@ -399,21 +491,25 @@ class _Kernel:
         return a
 
     def run_stream(self, blocks_iter):
-        """Consume an iterator of int8 code blocks [k, N] (3 = missing) ->
-        dict of per-row stat arrays (af, mac, num, beta, se, pval, p.norm,
-        converged, valid); rows failing the filters are NaN.
+        """Consume an iterator of int8 code blocks [k, N] (3 = missing) or
+        f64 row blocks [k, N] (NaN = missing) -> dict of per-row stat
+        arrays (af, mac, num, beta, se, pval, p.norm, converged, valid);
+        rows failing the filters are NaN.
 
-        Rows dispatch in ``batch``-row blocks, each split into sparse and
-        2-bit payloads by ``_packed_parts``; host memory holds the window
-        of blocks in flight plus the SPA-flagged rows."""
+        Rows dispatch in ``batch``-row blocks.  A block of codes, or of
+        f64 rows that are all 0/1/2/NaN, is split into sparse and 2-bit
+        payloads by ``_packed_parts`` (the kernels); any other f64 block
+        ships as it is (f32 where lossless) to the dense f64 score test.
+        Per-row results are independent either way.  Host memory holds the
+        window of blocks in flight plus the SPA-flagged rows."""
         B = self.batch
         parts = {k: [] for k in _STATS}
         acc = _SpaAccum(self)
         window = deque()
         buf, buf_n, row0 = [], 0, 0
-        pm = self._packed()
         phase1 = score_stats_binary_packed if self.binary \
             else score_stats_quant_packed
+        dense1 = score_stats_binary if self.binary else score_stats_quant
 
         def _drain():
             start, G, res_parts = window.popleft()
@@ -429,27 +525,40 @@ class _Kernel:
                 parts[k].append(f[k])
             if self.binary and need.any():   # phase 2 runs on f64 dosages
                 Gf = G[need]
-                acc.add(start + np.flatnonzero(need),
-                        np.where(Gf == 3, np.nan, Gf).astype(np.float64))
+                if Gf.dtype == np.int8:
+                    Gf = np.where(Gf == 3, np.nan, Gf).astype(np.float64)
+                acc.add(start + np.flatnonzero(need), Gf)
 
         def _dispatch(G, start):
             t0 = time.perf_counter()
-            host = _packed_parts(G)
+            codes = G if G.dtype == np.int8 else _as_codes(G)
+            key = "rows_packed" if codes is not None else "rows_dense"
+            self.inst[key] = self.inst.get(key, 0) + len(G)
+            if codes is None:
+                host = [(np.arange(len(G)), _shrink_f32(G))]
+            else:
+                host = _packed_parts(codes)
             _tick(self.inst, "encode_s", t0)
             res_parts = []
             for rows, payload in host:
-                self._count("single_sparse" if isinstance(payload, tuple)
-                            else "single_2bit")
+                self._count("dense" if codes is None else "single_sparse"
+                            if isinstance(payload, tuple) else "single_2bit")
                 dev = self._upload(payload)
                 res, ev = self._timed(lambda: stack_stats(
-                    phase1(pm, self.params, dev)))
+                    dense1(self.scan_model, self.params, dev)
+                    if codes is None
+                    else phase1(self._packed(), self.params, dev)))
                 res_parts.append((rows, res, ev))
             window.append((start, G, res_parts))
             if len(window) >= DEPTH:
                 _drain()
 
         for rows in blocks_iter:
-            rows = np.asarray(rows, np.int8)
+            rows = np.asarray(rows)
+            if rows.dtype != np.int8:        # int8 streams skip the f64 hop
+                rows = np.asarray(rows, np.float64)
+            if rows.ndim == 1:
+                rows = rows[None, :]
             pos = 0
             while pos < len(rows):
                 take = min(B - buf_n, len(rows) - pos)
@@ -567,8 +676,6 @@ def _prepare(gdsfile, modobj, config: AggregateConfig, device):
     dev = check_device(device)
     model = NullModel.load(modobj)
     seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
-    if config.dsnode or not seq.has_genotype():
-        raise _not_ported("an aggregate test of DS/dosage nodes", "item 8")
     # sample alignment like the scan (R/assoc_single.r:136-142)
     cols, ii = _match_samples(seq.sample_id, model.sample_id)
     scan_model = model.scan_model(sample_index=ii, var_ratio=config.var_ratio,
@@ -581,7 +688,8 @@ def _prepare(gdsfile, modobj, config: AggregateConfig, device):
                      batch=config.block_size, inst=inst)
     wbeta = np.asarray(config.wbeta, dtype=np.float64)  # [W, 2]
     wnames = [f"{b1:g}_{b2:g}" for b1, b2 in wbeta]
-    return kernel, wbeta, wnames, _UnitSource(seq, inst, cols)
+    return kernel, wbeta, wnames, _UnitSource(seq, inst, cols,
+                                              config.dsnode)
 
 
 def _table(units: VariantUnits, summaries: List[dict]) -> dict:
@@ -623,8 +731,23 @@ def assoc_burden(gdsfile, modobj, units: VariantUnits,
     summaries = []
     summac = np.zeros(U * W)
 
+    def burden_stream():
+        # dosages: collapse on the host, score the f64 rows
+        for u, idx in enumerate(units.index):
+            ds = src.rows(idx)
+            t0 = time.perf_counter()
+            maf, mac = _maf_mac(ds)
+            summaries.append(_maf_mac_summary(maf, mac))
+            rows = np.empty((W, src.n_cols))
+            for w in range(W):
+                ws = _normalize(beta_weights(maf, wbeta[w, 0], wbeta[w, 1]))
+                rows[w] = _burden_collapse(ds, ws)
+                summac[u * W + w] = rows[w].sum() * len(idx)
+            _tick(kernel.inst, "tally_s", t0)
+            yield rows
+
     def job_stream():
-        # ship codes once, collapse on the device
+        # hard calls: ship codes once, collapse on the device
         for u, idx in enumerate(units.index):
             codes = src.codes(idx)
             t0 = time.perf_counter()
@@ -638,7 +761,8 @@ def assoc_burden(gdsfile, modobj, units: VariantUnits,
             _tick(kernel.inst, "tally_s", t0)
             yield job
 
-    out = kernel.run_jobs(job_stream())
+    out = kernel.run_jobs(job_stream()) if src.geno \
+        else kernel.run_stream(burden_stream())
     ok = (summac >= config.summac) & (summac > 0)
     for k in ("beta", "se", "pval", "p.norm"):
         out[k][~ok] = np.nan
@@ -691,55 +815,84 @@ class _AcatVRunner:
         self.summaries: List[dict] = []
         self.n_rows = 0
 
+    def _plan(self, idx, maf, mac) -> _AcatVPlan:
+        single_mask = mac >= self.config.acatv_mac
+        plan = _AcatVPlan(idx=np.asarray(idx), maf=maf, mac=mac,
+                          single_mask=single_mask,
+                          n_burden=int((~single_mask).sum()))
+        self.plans.append(plan)
+        return plan
+
+    def _weights(self, plan: _AcatVPlan):
+        """The unit's weight rows -> [(weights [S], key dict, w)]: one per
+        scheme over the rare SNPs when it has any (ACAT-V's burden), and,
+        for ACAT-O, one per scheme over all SNPs (the full burden)."""
+        out = []
+        if plan.n_burden > 0:
+            for w, (b1, b2) in enumerate(self.wbeta):
+                with np.errstate(invalid="ignore", divide="ignore"):
+                    wb = np.where(plan.single_mask, np.nan,
+                                  beta_weights(plan.maf, b1, b2))
+                out.append((_normalize(wb), plan.burden_keys, w))
+        if self.with_full:
+            for w, (b1, b2) in enumerate(self.wbeta):
+                out.append((_normalize(beta_weights(plan.maf, b1, b2)),
+                            plan.full_keys, w))
+        return out
+
+    def _keep(self, summac: float, keys: dict, w: int) -> bool:
+        """The summac pre-filter; a kept row takes the next row number."""
+        if summac >= self.config.summac and summac > 0:
+            keys[w] = self.n_rows
+            self.n_rows += 1
+            return True
+        return False
+
+    def _unit_rows(self, idx) -> list:
+        """Plan one unit of dosages; its qualifying burden rows, collapsed
+        on the host."""
+        ds = self.src.rows(idx)
+        t0 = time.perf_counter()
+        maf, mac = _maf_mac(ds)
+        self.summaries.append(_maf_mac_summary(maf, mac))
+        plan = self._plan(idx, maf, mac)
+        rows = []
+        for wts, keys, w in self._weights(plan):
+            g = _burden_collapse(ds, wts)
+            if self._keep(g.sum() * ds.shape[0], keys, w):
+                rows.append(g)
+        _tick(self.kernel.inst, "tally_s", t0)
+        return rows
+
     def _unit_job(self, idx) -> Optional[_BurdenJob]:
         """Plan one unit; its burden job of the qualifying rows (summac
         pre-filtering), or None."""
-        cfg = self.config
         codes = self.src.codes(idx)
         t0 = time.perf_counter()
         t = _CodeTallies(codes)
         self.summaries.append(_maf_mac_summary(t.maf, t.mac))
-        single_mask = t.mac >= cfg.acatv_mac
-        n_burden = int((~single_mask).sum())
-        plan = _AcatVPlan(idx=np.asarray(idx), maf=t.maf, mac=t.mac,
-                          single_mask=single_mask, n_burden=n_burden)
-        self.plans.append(plan)
-        wlist, keymap = [], []
-        if n_burden > 0:
-            for w, (b1, b2) in enumerate(self.wbeta):
-                with np.errstate(invalid="ignore", divide="ignore"):
-                    wb = np.where(single_mask, np.nan,
-                                  beta_weights(t.maf, b1, b2))
-                wlist.append(_normalize(wb))
-                keymap.append((plan.burden_keys, w))
-        if self.with_full:
-            for w, (b1, b2) in enumerate(self.wbeta):
-                wlist.append(_normalize(beta_weights(t.maf, b1, b2)))
-                keymap.append((plan.full_keys, w))
+        wlist = self._weights(self._plan(idx, t.maf, t.mac))
         job = None
         if wlist:
-            job = _BurdenJob(codes, np.stack(wlist), t)
-            keep = []
-            for i, (keys, w) in enumerate(keymap):
-                summac = job.row_sums[i] * codes.shape[0]
-                if summac >= cfg.summac and summac > 0:
-                    keys[w] = self.n_rows
-                    self.n_rows += 1
-                    keep.append(i)
+            job = _BurdenJob(codes, np.stack([wts for wts, _, _ in wlist]),
+                             t)
+            keep = [i for i, (_, keys, w) in enumerate(wlist)
+                    if self._keep(job.row_sums[i] * codes.shape[0], keys, w)]
             job = None if not keep else \
-                job if len(keep) == len(keymap) else job.subset(keep)
+                job if len(keep) == len(wlist) else job.subset(keep)
         _tick(self.kernel.inst, "tally_s", t0)
         return job
 
     def run(self, units: VariantUnits):
         """-> (results {uid: (pvals [W], p_med, p_min, p_max, n_single,
         n_burden)}, full_pvals {uid: {w: pval}})"""
-        def job_stream():
-            for idx in units.index:
-                job = self._unit_job(idx)
-                if job is not None:
-                    yield job
-        pburden = self.kernel.run_jobs(job_stream())["pval"]
+        if self.src.geno:
+            jobs = (job for job in map(self._unit_job, units.index)
+                    if job is not None)
+            pburden = self.kernel.run_jobs(jobs)["pval"]
+        else:
+            rows = (g for idx in units.index for g in self._unit_rows(idx))
+            pburden = self.kernel.run_stream(rows)["pval"]
 
         # dedup'd single-variant tests, fetched in bounded batches
         sv_idx = sorted({int(i) for plan in self.plans
@@ -747,8 +900,10 @@ class _AcatVRunner:
         psingle = {}
         if sv_idx:
             sv = np.asarray(sv_idx)
+            # hard calls come as int8 codes (no f64 hop on the host)
+            fetch = self.src.codes if self.src.geno else self.src.rows
             sres = self.kernel.run_stream(
-                self.src.codes(sv[s : s + SINGLE_FETCH])
+                fetch(sv[s : s + SINGLE_FETCH])
                 for s in range(0, len(sv), SINGLE_FETCH))
             psingle = dict(zip(sv_idx, sres["pval"]))
 

@@ -1,12 +1,16 @@
 """Single-variant association scan (the ``seqAssocGLMM_SPA`` equivalent).
 
 The counterpart of ``saigegds_tpu/assoc/single.py`` for a binary or a
-quantitative trait over a GDS genotype node.  Variant blocks stream through
-three threads — GDS decode, planar 2-bit pack, upload to the device — into
-the phase-1 score test (``ops/score_packed.py``, kernel B3; with
-``packed_2bit=False`` the int8 block ships as it is, through kernel B4); for
-a binary trait, variants with ``p_noadj <= spa.pval`` are refined in phase
-2 by the saddlepoint approximation (``ops/score.spa_refine_binary``), and a
+quantitative trait.  Variant blocks stream through three threads — GDS
+decode, pack, upload to the device — into the phase-1 score test.  Hard
+calls of a genotype node ship planar 2-bit (``ops/score_packed.py``,
+kernel B3; with ``packed_2bit=False`` the int8 block ships as it is,
+through kernel B4).  Dosages — an imputed ``annotation/format/DS`` node,
+``dsnode="$dosage_alt"``, ``use_packed=False`` or the user's callback of
+:func:`assoc_spa_user` — ship as f64 rows (f32 where that is lossless)
+into the dense f64 score test (``ops/score.py``).  For a binary trait,
+variants with ``p_noadj <= spa.pval`` are refined in phase 2 by the
+saddlepoint approximation (``ops/score.spa_refine_binary``), and a
 quantitative trait's phase 1 is final.  Output columns and semantics match
 the reference (``R/assoc_single.r:92-334``): id, chr, pos, rs.id, ref, alt,
 AF.alt, mac, num, beta, SE, pval, and for a binary trait p.norm and
@@ -30,8 +34,8 @@ from ..config import ScanConfig
 from ..io.seqarray import SeqData
 from ..models.nullmodel import NullModel
 from ..ops._cuda import check_device
-from ..ops.score import ScanParams, spa_refine_binary, stack_stats, \
-    unstack_stats
+from ..ops.score import ScanParams, score_stats_binary, score_stats_quant, \
+    spa_refine_binary, stack_stats, unstack_stats
 from ..ops.score_packed import pack_scan_model, score_stats_binary_packed, \
     score_stats_quant_packed
 from ..ops.sparse_codes import SPARSE_NNZ_FRAC, encode_sparse_rows
@@ -40,12 +44,7 @@ SPA_BATCH = 256  # compact SPA refinement batch size
 SPA_FLUSH_BYTES = 1 << 30  # flagged-set host budget before an incremental
 #                            phase-2 flush (bounds scan memory at scale)
 DEPTH = 3        # blocks in flight between dispatch and readback
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet (ROADMAP Queue A, {item}); "
-        "use saigegds_tpu.assoc_spa")
+CHECK_ELEMS = 1 << 20   # elements per chunk of the host's dosage checks
 
 
 def _prefetch_blocks(block_iter, depth: int = 2, name: str = "",
@@ -95,6 +94,33 @@ def _prefetch_blocks(block_iter, depth: int = 2, name: str = "",
         yield item
 
 
+def _scan_params(config: ScanConfig) -> ScanParams:
+    """The filters and the SPA cut of a ScanConfig (NaN: no filter)."""
+    return ScanParams(
+        maf=-1.0 if math.isnan(config.maf) else config.maf,
+        mac=-1.0 if math.isnan(config.mac) else config.mac,
+        missing=1.0 if math.isnan(config.missing) else config.missing,
+        spa_pval=config.spa_pval,
+    )
+
+
+def _shrink_f32(G: np.ndarray) -> np.ndarray:
+    """Ship a dosage block f32 when that is lossless (always for dFloat32
+    sources and integer-valued dosages): half the host-to-device bytes;
+    ``ops/score.prep_dosage`` widens it back to f64 on the device.  The
+    block is cast and checked in chunks of rows, so a block that is not
+    f32-exact stops at its first such chunk."""
+    G32 = np.empty(G.shape, np.float32)
+    step = max(1, CHECK_ELEMS // max(G.shape[-1], 1))
+    for s in range(0, len(G), step):
+        g, g32 = G[s : s + step], G32[s : s + step]
+        with np.errstate(over="ignore"):      # an overflow is a miss
+            g32[...] = g
+        if not np.all((g32 == g) | np.isnan(g)):
+            return G
+    return G32
+
+
 def _pack2_block(G: np.ndarray) -> np.ndarray:
     """2-bit planar pack of an int8 code block — the scan transport's pack
     stage (the native threaded kernel when the host library builds, numpy
@@ -115,18 +141,21 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
               res_compress: str = "LZMA", instrument=None, *,
               device) -> dict:
     """Score-test + SPA scan over all variants of a SeqArray GDS file, on
-    ``device`` ("cuda" runs phase 1 through the hand-written kernel).
+    ``device`` ("cuda" runs phase 1 of hard calls through the hand-written
+    kernels, and of dosages through f64 tensor code on the card).
 
-    ``variant_mask`` restricts the scan; ``res_compress`` is the output
-    compression of :func:`save_assoc`.  ``instrument``: optional dict that
-    collects per-stage wall-times (see :func:`_scan_blocks`).  Returns the
-    result table as an ordered dict of numpy columns.
+    Hard calls of a genotype node take the packed route; an
+    ``annotation/format/DS`` node (found by itself when the file has no
+    genotype node), ``config.dsnode`` and ``config.use_packed=False`` take
+    the dense dosage route.  ``variant_mask`` restricts the scan;
+    ``res_compress`` is the output compression of :func:`save_assoc`.
+    ``instrument``: optional dict that collects per-stage wall-times (see
+    :func:`_scan_blocks`).  Returns the result table as an ordered dict of
+    numpy columns.
     """
     dev = check_device(device)
     model = NullModel.load(modobj)
     seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
-    if config.dsnode or not config.use_packed or not seq.has_genotype():
-        raise _not_ported("a scan of DS/dosage nodes", "item 8")
     if config.spa_mixed:
         raise NotImplementedError("spa_mixed is deprecated and not ported")
 
@@ -137,23 +166,27 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
     scan_model = model.scan_model(sample_index=ii,
                                   var_ratio=config.var_ratio, device=dev)
 
-    params = ScanParams(
-        maf=-1.0 if math.isnan(config.maf) else config.maf,
-        mac=-1.0 if math.isnan(config.mac) else config.mac,
-        missing=1.0 if math.isnan(config.missing) else config.missing,
-        spa_pval=config.spa_pval,
-    )
+    params = _scan_params(config)
     if verbose:
         print(f"SPA association scan ({model.trait_type} trait) on {dev}: "
               f"{seq.n_variants} variants x {model.n_samples} samples")
 
-    blocks = seq.iter_code_blocks(config.block_size,
-                                  variant_mask=variant_mask)
+    # the packed route needs hard calls; a model over a subset of the GDS
+    # samples keeps it (the blocks are gathered before the pack)
+    dense = not (config.use_packed and seq.has_genotype()
+                 and not config.dsnode)
+    if dense:
+        blocks = seq.iter_dosage_blocks(config.block_size,
+                                        dsnode=config.dsnode,
+                                        variant_mask=variant_mask)
+    else:
+        blocks = seq.iter_code_blocks(config.block_size,
+                                      variant_mask=variant_mask)
     res = _scan_blocks(scan_model, params, blocks, dev,
                        binary=model.trait_type == "binary",
                        packed_2bit=config.packed_2bit,
                        spa_compact=config.spa_compact, cols=cols,
-                       instrument=instrument)
+                       instrument=instrument, dense=dense)
     idx = res.pop("__idx__")
 
     ref, alt = seq.ref_alt
@@ -176,20 +209,65 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
     return tab
 
 
+def assoc_spa_user(geno_fn, n_variants: int, modobj: Union[NullModel, str],
+                   config: ScanConfig = ScanConfig(), variant_id=None,
+                   res_savefn: str = "", res_compress: str = "LZMA", *,
+                   device) -> dict:
+    """Score-test + SPA scan over dosages the caller supplies (the
+    reference's internal ``.UserGLMM_SPA``, R/assoc_single.r:342-554),
+    on ``device``, through the dense dosage route.
+
+    ``geno_fn(start, stop)`` returns a ``[stop-start, N]`` float array of
+    ALT dosages (NaN = missing) whose columns are the model's samples in
+    the model's order.  ``variant_id`` names the variants (default: their
+    1-based positions).  The table starts with ``id``, then the columns of
+    :func:`assoc_spa` from ``AF.alt`` on.
+    """
+    dev = check_device(device)
+    model = NullModel.load(modobj)
+    scan_model = model.scan_model(var_ratio=config.var_ratio, device=dev)
+    params = _scan_params(config)
+    B = config.block_size
+
+    def blocks():
+        for s in range(0, n_variants, B):
+            e = min(s + B, n_variants)
+            G = np.asarray(geno_fn(s, e), np.float64)
+            if G.shape != (e - s, model.n_samples):
+                raise ValueError(
+                    f"geno_fn({s}, {e}) returned shape {G.shape}, expected "
+                    f"({e - s}, {model.n_samples})")
+            yield np.arange(s, e), G
+
+    res = _scan_blocks(scan_model, params, blocks(), dev,
+                       binary=model.trait_type == "binary",
+                       spa_compact=config.spa_compact, dense=True)
+    idx = res.pop("__idx__")
+    ids = np.asarray(variant_id)[idx] if variant_id is not None else idx + 1
+    tab = {"id": ids}
+    tab.update(res)
+    if res_savefn:
+        save_assoc(tab, res_savefn, res_compress=res_compress)
+    return tab
+
+
 def _scan_blocks(scan_model, params, block_iter, device: torch.device,
                  binary: bool, packed_2bit: bool = True,
                  spa_compact: bool = True, cols=None,
-                 instrument=None) -> dict:
+                 instrument=None, dense: bool = False) -> dict:
     """Two-phase scan core for one model: batched score kernel + compact
     SPA (``_scan_blocks_multi`` of the JAX package, P = 1).  A
     quantitative model (``binary=False``) flags nothing for SPA, and its
     table has no ``p.norm`` or ``converged`` column.
 
-    Blocks ship 2-bit planar (kernel B3) or, with ``packed_2bit=False``,
-    as the int8 codes themselves (kernel B4); phase 2 ships the flagged
-    codes 2-bit either way.  ``cols`` (GDS columns of the model's samples,
-    from :func:`_match_samples`) gathers every block to the model's
-    samples before it is packed, so phase 1 and phase 2 both see them.
+    Blocks of int8 codes ship 2-bit planar (kernel B3) or, with
+    ``packed_2bit=False``, as the codes themselves (kernel B4); phase 2
+    ships the flagged codes 2-bit either way.  With ``dense``, blocks are
+    f64 dosages (NaN = missing) that ship f64, or f32 where that is
+    lossless, to the dense score test, and phase 2 ships the flagged rows
+    the same way.  ``cols`` (GDS columns of the model's samples, from
+    :func:`_match_samples`) gathers every block to the model's samples
+    before it is packed, so phase 1 and phase 2 both see them.
 
     ``instrument``: optional dict; per-block wall-times land in lists
     under ``decode_s`` (GDS block read, decode thread), ``pack_s`` (2-bit
@@ -197,7 +275,8 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
     ``dispatch_s`` (phase-1 enqueue, main thread), ``drain_s`` (result
     sync + readback), ``bytes`` (payload sizes), ``gather_s`` (the sample
     gather inside ``pack_s``, when ``cols`` is given), plus scalars ``spa_s``
-    (phase-2 time) and ``spa_n`` (variants refined).  Stages overlap, so
+    (phase-2 time, the flushes inside ``drain_s`` included) and ``spa_n``
+    (variants refined).  Stages overlap, so
     sums exceed wall-clock by design.
     """
     import time as _time
@@ -207,9 +286,14 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
             instrument.setdefault(k, [])
         instrument.setdefault("spa_s", 0.0)
         instrument.setdefault("spa_n", 0)
-    pm = pack_scan_model(scan_model)
-    phase1 = score_stats_binary_packed if binary \
-        else score_stats_quant_packed
+    if dense:
+        kern = score_stats_binary if binary else score_stats_quant
+        phase1 = lambda payload: kern(scan_model, params, payload)
+    else:
+        pm = pack_scan_model(scan_model)
+        kern = score_stats_binary_packed if binary \
+            else score_stats_quant_packed
+        phase1 = lambda payload: kern(pm, params, payload)
     rows_idx = []
     outs = []
     spa_G, spa_rows = [], []        # flagged variants for phase 2
@@ -233,13 +317,14 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
     def _packed_stage(it):
         for idx, G in it:
             t0 = _time.perf_counter()
-            G = np.asarray(G, np.int8)
+            G = np.asarray(G, np.float64 if dense else np.int8)
             if cols is not None:
                 G = np.take(G, cols, axis=1)         # the model's samples
                 if instrument is not None:
                     instrument["gather_s"].append(_time.perf_counter() - t0)
-            # uint8 [n, ceil(N/4)], or the int8 block itself
-            payload = _pack2_block(G) if packed_2bit else G
+            # f64/f32 dosages, uint8 [n, ceil(N/4)], or the int8 codes
+            payload = _shrink_f32(G) if dense else \
+                _pack2_block(G) if packed_2bit else G
             if instrument is not None:
                 instrument["pack_s"].append(_time.perf_counter() - t0)
             yield idx, G, payload
@@ -274,7 +359,7 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
         out["pval_noadj"] = out["pval"].copy()
         needv = res.need_spa[valid]
         if needv.any():
-            Gf = G[valid][needv]     # int8 codes; phase 2 ships them 2-bit
+            Gf = G[valid][needv]     # codes ship 2-bit, dosages f64/f32
             spa_G.append(Gf)
             spa_rows.append(row0 + np.flatnonzero(needv))
             spa_bytes += Gf.nbytes
@@ -291,6 +376,7 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
         nonlocal spa_bytes
         if not spa_G:
             return
+        t_spa = _time.perf_counter()
         Gs = np.concatenate(spa_G, axis=0)
         rows = np.concatenate(spa_rows)
         spa_G.clear()
@@ -305,24 +391,30 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
             Gs, rows = Gs[order], rows[order]
         N = Gs.shape[1]
 
+        codes = np.issubdtype(Gs.dtype, np.integer)
+
         def _spa_payloads():
             # payload build + upload in the prefetch worker, like phase 1;
-            # batches ship 2-bit packed (N/4 bytes per variant)
+            # codes ship 2-bit packed (N/4 bytes per variant)
             for s in range(0, len(rows), SPA_BATCH):
                 Gi = Gs[s : s + SPA_BATCH]
                 cap = _spa_cap(Gi) if spa_compact else 0
+                payload = _pack2_block(Gi) if codes else _shrink_f32(Gi)
                 yield rows[s : s + SPA_BATCH], \
-                    _to_device(_pack2_block(Gi), device), cap
+                    _to_device(payload, device), cap
 
         for r, Gb, cap in _prefetch_blocks(_spa_payloads()):
-            res = spa_refine_binary(scan_model, Gb, cap=cap, packed_n=N)
+            res = spa_refine_binary(scan_model, Gb, cap=cap,
+                                    packed_n=N if codes else 0)
             a = torch.stack([res[0], res[1].to(torch.float64), res[2],
                              res[3]]).cpu().numpy()
             spa_out.append((r, a[0], a[1] != 0, a[2], a[3]))
+        if instrument is not None:
+            instrument["spa_s"] += _time.perf_counter() - t_spa
 
     for idx, G, payload in block_iter:
         t_di = _time.perf_counter()
-        stacked = stack_stats(phase1(pm, params, payload))
+        stacked = stack_stats(phase1(payload))
         if instrument is not None:
             instrument["dispatch_s"].append(_time.perf_counter() - t_di)
         window.append((idx, G, stacked))
@@ -330,10 +422,7 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
             _drain_one()
     while window:
         _drain_one()
-    t_spa = _time.perf_counter()
     _flush_spa()  # phase 2 over the remaining flagged subset
-    if instrument is not None:
-        instrument["spa_s"] += _time.perf_counter() - t_spa
 
     def col(k):
         return np.concatenate([o[k] for o in outs]) if outs \
@@ -487,15 +576,19 @@ RES_COMPRESS_CHOICES = ("LZMA", "LZMA_RA", "ZIP", "ZIP_RA", "none")
 
 def save_assoc(tab: dict, path: str, file_format: str = "SAIGE_OUTPUT",
                res_compress: str = "LZMA"):
-    """Save a result table (gds / csv / tsv by extension).
+    """Save a result table (gds / rds / rda / csv / tsv by extension).
 
-    ``.gds`` writes the reference's SAIGE_OUTPUT container
-    (R/assoc_single.r:242-333), readable by ``seqSAIGE_LoadPval`` and the
-    JAX package's ``load_pval``; ``res_compress`` (LZMA, LZMA_RA, ZIP,
-    ZIP_RA, none — the reference's ``res.compress`` choices) applies to its
-    column pipes.  ``.csv``/``.csv.gz`` write comma-separated text and any
-    other extension tab-separated text, with a header row and NaN as an
-    empty field.
+    ``.gds`` writes the reference's SAIGE_OUTPUT container and
+    ``.rds``/``.rda`` its saveRDS/save outputs (R/assoc_single.r:242-333;
+    the .rda object is named ``.res`` like the reference's), all readable
+    by ``seqSAIGE_LoadPval`` and the JAX package's ``load_pval``.
+    ``res_compress`` (LZMA, LZMA_RA, ZIP, ZIP_RA, none — the reference's
+    ``res.compress`` choices) applies to the gds column pipes and, mapped
+    as the reference maps it (LZMA* to xz, ZIP* to gzip,
+    R/assoc_single.r:313-314), to the rds/rda streams.  ``.csv``/``.csv.gz``
+    write comma-separated text and any other extension tab-separated
+    text, with a header row and NaN as an empty field.  ``.parquet`` raises:
+    it needs pandas and pyarrow, which this package does not use.
     """
     if res_compress not in RES_COMPRESS_CHOICES:
         raise ValueError("`res_compress` should be one of LZMA, LZMA_RA, "
@@ -506,11 +599,47 @@ def save_assoc(tab: dict, path: str, file_format: str = "SAIGE_OUTPUT",
         write_gds_table(path, tab, file_format=file_format,
                         compress="" if res_compress == "none"
                         else res_compress)
-    elif low.endswith((".rds", ".rda", ".rdata", ".parquet")):
-        raise _not_ported(f"saving {path!r}", "item 8")
+    elif low.endswith(".rds"):
+        from ..io.rds_write import write_rds
+        write_rds(path, _df_to_robject(tab), compress=_rcompress(res_compress))
+    elif low.endswith((".rda", ".rdata")):
+        from ..io.rds_write import write_rdata
+        write_rdata(path, {".res": _df_to_robject(tab)},
+                    compress=_rcompress(res_compress))
+    elif low.endswith(".parquet"):
+        raise NotImplementedError(
+            f"saving {path!r}: parquet needs pandas and pyarrow, which the "
+            "PyTorch port does not use (ROADMAP, Not ported); save as .gds, "
+            ".rds, .rda, .csv or .tsv")
     else:
         _write_text(tab, path,
                     sep="," if low.endswith((".csv", ".csv.gz")) else "\t")
+
+
+def _rcompress(res_compress: str):
+    """res.compress -> saveRDS/save compress argument
+    (R/assoc_single.r:313)."""
+    return {"LZMA": "xz", "LZMA_RA": "xz", "ZIP": "gzip",
+            "ZIP_RA": "gzip"}.get(res_compress, True)
+
+
+def _df_to_robject(tab: dict):
+    """A table (dict of numpy columns) -> an R data.frame for the rds
+    writer; string columns become character vectors."""
+    from ..io.rds import RObject
+    cols = {}
+    for c, v in tab.items():
+        v = np.asarray(v)
+        if v.dtype == object or v.dtype.kind in ("U", "S"):
+            v = np.asarray([None if x is None else str(x) for x in v],
+                           dtype=object)
+        cols[c] = v
+    n = len(next(iter(cols.values()))) if cols else 0
+    return RObject(cols, {
+        "names": np.asarray(list(cols), dtype=object),
+        "class": np.asarray(["data.frame"], dtype=object),
+        "row.names": np.arange(1, n + 1, dtype=np.int32),
+    })
 
 
 def _write_text(tab: dict, path: str, sep: str):

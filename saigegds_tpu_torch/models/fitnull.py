@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ast
 import math
+import os
 import time
 import warnings
 from dataclasses import dataclass
@@ -311,6 +312,39 @@ def _fit_tau_quant(grm, st, tau0, cfg):
 
 
 # ---------------------------------------------------------------------------
+# checkpoints: ``{cfg.checkpoint}.fit.npz`` (AI-REML) and ``.vr.npz`` (the
+# variance-ratio markers), the JAX package's files
+
+
+def _ck_path(cfg: NullModelConfig, tag: str) -> str:
+    return f"{cfg.checkpoint}.{tag}.npz" if cfg.checkpoint else ""
+
+
+def _ck_save(path: str, **arrs):
+    """Atomic checkpoint write (tmp + rename)."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrs)
+    os.replace(tmp, path)
+
+
+def _ck_load(path: str):
+    if path and os.path.exists(path):
+        with np.load(path, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+    return None
+
+
+def clear_checkpoint(cfg: NullModelConfig):
+    """Remove the fit and variance-ratio checkpoint files (called once the
+    model is assembled)."""
+    for tag in ("fit", "vr"):
+        p = _ck_path(cfg, tag)
+        if p and os.path.exists(p):
+            os.remove(p)
+
+
+# ---------------------------------------------------------------------------
 # outer loop (saige_fit_AI_PCG_{binary,quant})
 
 
@@ -330,7 +364,16 @@ def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
                cfg: NullModelConfig, binary: bool,
                verbose=False) -> GlmmFit:
     """The saige_fit_AI_PCG_{binary,quant} outer loop
-    (src/saige_fitnull.cpp:948-1099, 1102-1248)."""
+    (src/saige_fitnull.cpp:948-1099, 1102-1248).
+
+    With ``cfg.checkpoint`` the state after every outer iteration, and the
+    finished fit, go to ``{checkpoint}.fit.npz``; a later call resumes from
+    that file.  Replay is exact on the CPU: each iteration is Markov in
+    (tau, alpha, eta), since the trace estimate restarts its R-RNG stream
+    per call.  On a card the missing-pair corrections of the GRM product
+    are f64 atomics, so a resumed fit there agrees with an uninterrupted
+    one to the solver's precision rather than bit for bit.  A file of
+    another model shape is ignored with a warning."""
     family = _Binomial() if binary else _Gaussian()
     y = fit0.y.astype(np.float64)
     n = len(y)
@@ -343,22 +386,57 @@ def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
     tau = np.asarray(tau, np.float64).copy()
     tau0 = tau.copy()
 
-    st = _get_coeff(grm, y, X, tau, family, alpha0, eta0, offset,
-                    cfg.maxiter_pcg, cfg.maxiter, cfg.tol_pcg)
-    # first moment-based update of tau (both taus for a quantitative trait)
-    if binary:
-        YPAPY, trace, _ = _get_ai_score_binary(grm, st, tau, cfg)
-        tau[1] = max(0.0, tau0[1] + tau0[1] ** 2 * (YPAPY - trace) / n)
-    else:
-        (YPAPY, YPA0PY), (trace0, trace1), _ = _get_ai_score_quant(
-            grm, st, tau, cfg)
-        tau[0] = max(0.0, tau0[0] + tau0[0] ** 2 * (YPA0PY - trace0) / n)
-        tau[1] = max(0.0, tau0[1] + tau0[1] ** 2 * (YPAPY - trace1) / n)
-
+    ckp = _ck_path(cfg, "fit")
+    state = _ck_load(ckp)
+    if state is not None and (int(state["n"]) != n
+                              or int(state["k"]) != X.shape[1]
+                              or bool(state["binary"]) != binary):
+        warnings.warn(f"ignoring checkpoint {ckp}: model shape mismatch")
+        state = None
+    if state is not None and str(state["phase"]) == "done":
+        mu_d = state["mu"]
+        return GlmmFit(coefficients=state["alpha"], tau=state["tau"],
+                       linear_predictors=state["eta"], fitted_values=mu_d,
+                       residuals=y - mu_d, cov=state["cov"],
+                       converged=bool(state["converged"]),
+                       iterations=int(state["it"]) if "it" in state else 0)
+    start_it = 1
+    resume_alpha = None
     it = 0
     brk = False
-    for it in range(1, cfg.maxiter + 1):
-        alpha0 = st.alpha
+    if state is not None:
+        tau = state["tau"].copy()
+        eta = state["eta"].copy()
+        alpha = resume_alpha = state["alpha"].copy()
+        it = int(state["it"])
+        brk = bool(state["brk"])
+        if brk or it >= cfg.maxiter:
+            # crashed between the last saved iteration and the final
+            # solve: skip the loop and restore the final solve's warm
+            # start as the uninterrupted run has it
+            start_it = cfg.maxiter + 1
+            alpha0 = state["alpha0"].copy()
+            eta0 = state["eta0"].copy()
+        else:
+            start_it = it + 1
+        st = None
+    else:
+        st = _get_coeff(grm, y, X, tau, family, alpha0, eta0, offset,
+                        cfg.maxiter_pcg, cfg.maxiter, cfg.tol_pcg)
+        # first moment-based update of tau (both taus for a quantitative
+        # trait)
+        if binary:
+            YPAPY, trace, _ = _get_ai_score_binary(grm, st, tau, cfg)
+            tau[1] = max(0.0, tau0[1] + tau0[1] ** 2 * (YPAPY - trace) / n)
+        else:
+            (YPAPY, YPA0PY), (trace0, trace1), _ = _get_ai_score_quant(
+                grm, st, tau, cfg)
+            tau[0] = max(0.0,
+                         tau0[0] + tau0[0] ** 2 * (YPA0PY - trace0) / n)
+            tau[1] = max(0.0, tau0[1] + tau0[1] ** 2 * (YPAPY - trace1) / n)
+
+    for it in range(start_it, cfg.maxiter + 1):
+        alpha0 = resume_alpha if st is None else st.alpha
         if verbose:
             print(f"    Iteration {it}: tau = {tau}, coeff = {alpha}")
         tau0 = tau.copy()
@@ -385,6 +463,10 @@ def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
         brk = (binary and tau[1] == 0) or bool(
             np.max(np.abs(tau - tau0) / (np.abs(tau) + np.abs(tau0)
                                          + cfg.tol)) < cfg.tol)
+        if ckp:
+            _ck_save(ckp, phase="iter", it=it, brk=brk, n=n, k=X.shape[1],
+                     binary=binary, tau=tau, alpha=alpha, eta=eta,
+                     alpha0=alpha0, eta0=eta0)
         if brk:
             break
 
@@ -393,13 +475,76 @@ def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
     # converged iff the tau loop broke on its tolerance (the reference's
     # `iter <= maxiter` works because its C loop leaves iter = maxiter+1
     # on exhaustion; Python's range leaves it = maxiter)
-    return GlmmFit(coefficients=st.alpha, tau=tau, linear_predictors=st.eta,
-                   fitted_values=st.mu, residuals=y - st.mu, cov=st.cov,
-                   converged=bool(brk), iterations=it)
+    fit = GlmmFit(coefficients=st.alpha, tau=tau, linear_predictors=st.eta,
+                  fitted_values=st.mu, residuals=y - st.mu, cov=st.cov,
+                  converged=bool(brk), iterations=it)
+    if ckp:
+        _ck_save(ckp, phase="done", n=n, k=X.shape[1], binary=binary,
+                 tau=tau, alpha=st.alpha, eta=st.eta, mu=st.mu,
+                 cov=st.cov, converged=fit.converged, it=it)
+    return fit
 
 
 # ---------------------------------------------------------------------------
 # variance ratio (saige_calc_var_ratio_{binary,quant})
+
+
+class _VarRatio:
+    """The projection state shared by every variance-ratio marker chunk
+    (src/saige_fitnull.cpp:1255-1474): the GLM's weights, Sigma^-1 X1 and
+    (X1' Sigma^-1 X1)^-1."""
+
+    def __init__(self, grm: _FitGRM, fit0: GlmFit, glmm: GlmmFit,
+                 nok: ObjNoK, cfg: NullModelConfig, binary: bool):
+        family = _Binomial() if binary else _Gaussian()
+        mu_eta = family.mu_eta(fit0.linear_predictors)
+        self.mu = fit0.fitted_values
+        self.W = (mu_eta * mu_eta) / family.variance(self.mu)
+        self.grm, self.nok, self.cfg, self.binary = grm, nok, cfg, binary
+        self.Sigma_iX = _pcg(grm, self.W, glmm.tau, nok.X1, cfg.tol_pcg,
+                             cfg.maxiter_pcg)
+        self.xsx_inv = _mat_inv(nok.X1.T @ self.Sigma_iX)
+        self.tau = glmm.tau
+
+    @staticmethod
+    def marker(codes, i_snp: int):
+        """(af, ac, g) of marker ``i_snp`` (1-based) after mean imputation
+        and the minor-allele flip, or None for an all-missing marker
+        (explicit variant_id panels bypass the missing-rate filter)."""
+        g = codes[i_snp - 1].astype(np.float64)
+        isnan = g >= 3
+        num = int((~isnan).sum())
+        if num == 0:
+            return None
+        ac = float(np.where(isnan, 0, g).sum())
+        af = ac / (2 * num)
+        g = np.where(isnan, ac / num, g)  # mean impute
+        if af > 0.5:
+            g = 2.0 - g
+            ac = 2 * num - ac
+            af = 1 - af
+        return af, ac, g
+
+    def ratios(self, pending):
+        """[(i_snp, af, ac, g)] -> [(var1, var2)]: one batched PCG solve of
+        the covariate-projected markers."""
+        nok, cfg = self.nok, self.cfg
+        G0 = np.stack([p[3] for p in pending], axis=1)   # [N, B]
+        G = G0 - nok.XXVX_inv @ (nok.XV @ G0)
+        SiG = _pcg(self.grm, self.W, self.tau, G, cfg.tol_pcg,
+                   cfg.maxiter_pcg)
+        adj = self.Sigma_iX @ (self.xsx_inv @ (nok.X1.T @ SiG))
+        out = []
+        for k, (_, _, ac, _) in enumerate(pending):
+            var1 = (float(G[:, k] @ SiG[:, k]) -
+                    float(G[:, k] @ adj[:, k])) / ac
+            gn = G[:, k] / math.sqrt(ac)
+            if self.binary:
+                var2 = float(np.sum(self.mu * (1 - self.mu) * gn * gn))
+            else:
+                var2 = float(gn @ gn)
+            out.append((var1, var2))
+        return out
 
 
 def calc_var_ratio(grm: _FitGRM, codes, fit0: GlmFit, glmm: GlmmFit,
@@ -410,56 +555,38 @@ def calc_var_ratio(grm: _FitGRM, codes, fit0: GlmFit, glmm: GlmmFit,
     10 until CV <= ratioCVcutoff (src/saige_fitnull.cpp:1255-1474).
 
     ``codes`` gives int8 genotype rows by 0-based GRM variant index: an
-    [M, N] array, or a :class:`_MarkerRows` cache for a streamed fit."""
-    family = _Binomial() if binary else _Gaussian()
-    eta = fit0.linear_predictors
-    mu = fit0.fitted_values
-    mu_eta = family.mu_eta(eta)
-    W = (mu_eta * mu_eta) / family.variance(mu)
-    tau = glmm.tau
-    X1 = nok.X1
-    Sigma_iX = _pcg(grm, W, tau, X1, cfg.tol_pcg, cfg.maxiter_pcg)
-    xsx_inv = _mat_inv(X1.T @ Sigma_iX)
-
+    [M, N] array, or a :class:`_MarkerRows` cache for a streamed fit.
+    With ``cfg.checkpoint`` the table after every marker chunk goes to
+    ``{checkpoint}.vr.npz``, and a later call resumes from it (the marker
+    order is fixed, so replay is exact)."""
+    vr = _VarRatio(grm, fit0, glmm, nok, cfg, binary)
     rows = dict(id=[], maf=[], mac=[], var1=[], var2=[], ratio=[])
     num_marker = cfg.num_marker
     snp_pos = 0
     num_tested = 0
     n_rand = len(marker_order)
+    ckp = _ck_path(cfg, "vr")
+    state = _ck_load(ckp)
+    if state is not None and int(state["n_rand"]) != n_rand:
+        warnings.warn(f"ignoring checkpoint {ckp}: marker-set mismatch")
+        state = None
+    if state is not None:
+        rows = {k: list(state["r_" + k]) for k in rows}
+        snp_pos = int(state["snp_pos"])
+        num_tested = int(state["num_tested"])
+        num_marker = int(state["num_marker"])
     while snp_pos < n_rand:
         # gather the next chunk of markers passing the MAC filter
         pending = []
         while num_tested + len(pending) < num_marker and snp_pos < n_rand:
             i_snp = int(marker_order[snp_pos])  # 1-based
             snp_pos += 1
-            g = codes[i_snp - 1].astype(np.float64)
-            isnan = g >= 3
-            num = int((~isnan).sum())
-            if num == 0:          # all-missing marker (explicit variant_id
-                continue          # panels bypass the missing-rate filter)
-            ac = float(np.where(isnan, 0, g).sum())
-            af = ac / (2 * num)
-            g = np.where(isnan, ac / num, g)  # mean impute
-            if af > 0.5:
-                g = 2.0 - g
-                ac = 2 * num - ac
-                af = 1 - af
-            if ac <= 20:  # suggested by the paper
-                continue
-            pending.append((i_snp, af, ac, g))
+            m = vr.marker(codes, i_snp)
+            if m is not None and m[1] > 20:     # MAC > 20, as the paper
+                pending.append((i_snp,) + m)
         if pending:
-            G0 = np.stack([p[3] for p in pending], axis=1)   # [N, B]
-            G = G0 - nok.XXVX_inv @ (nok.XV @ G0)
-            SiG = _pcg(grm, W, tau, G, cfg.tol_pcg, cfg.maxiter_pcg)
-            adj = Sigma_iX @ (xsx_inv @ (X1.T @ SiG))
-            for k, (i_snp, af, ac, _) in enumerate(pending):
-                var1 = (float(G[:, k] @ SiG[:, k]) -
-                        float(G[:, k] @ adj[:, k])) / ac
-                gn = G[:, k] / math.sqrt(ac)
-                if binary:
-                    var2 = float(np.sum(mu * (1 - mu) * gn * gn))
-                else:
-                    var2 = float(gn @ gn)
+            for (i_snp, af, ac, _), (var1, var2) in zip(pending,
+                                                        vr.ratios(pending)):
                 rows["id"].append(i_snp)
                 rows["maf"].append(af)
                 rows["mac"].append(ac)
@@ -470,6 +597,11 @@ def calc_var_ratio(grm: _FitGRM, codes, fit0: GlmFit, glmm: GlmmFit,
                 if verbose:
                     print(f"    marker {i_snp}: maf {af:.4g}, mac {ac:g}, "
                           f"ratio {var1 / var2:.6g}")
+            if ckp:
+                _ck_save(ckp, n_rand=n_rand, snp_pos=snp_pos,
+                         num_tested=num_tested, num_marker=num_marker,
+                         **{"r_" + k: np.asarray(v)
+                            for k, v in rows.items()})
         if num_tested >= num_marker:
             cv = _calc_cv(rows["ratio"])
             if cv > cfg.ratio_cv_cutoff:
@@ -478,6 +610,78 @@ def calc_var_ratio(grm: _FitGRM, codes, fit0: GlmFit, glmm: GlmmFit,
                 break
         elif snp_pos >= n_rand:
             break
+    return rows
+
+
+def calc_var_ratio_cat(grm: _FitGRM, codes, fit0: GlmFit, glmm: GlmmFit,
+                       nok: ObjNoK, cfg: NullModelConfig,
+                       marker_order: np.ndarray, binary: bool,
+                       verbose=False):
+    """Variance ratios per MAC category (``cfg.var_ratio_mac_cat``, a
+    feature of SAIGEgds releases after v1.12.5, whose reference estimates
+    one pooled ratio over markers with MAC > 20, src/saige_fitnull.cpp:1316).
+
+    Category ``c`` spans minor-allele counts in ``(edges[c-1], edges[c]]``,
+    plus a trailing open ``(edges[-1], inf)`` category.  Each category runs
+    the loop of :func:`calc_var_ratio` -- ``num_marker`` markers first,
+    then 10 more until the ratio CV is under ``ratio_cv_cutoff`` -- with
+    the category's MAC range in place of the fixed ``mac > 20`` cut, in
+    one walk of the shared ``marker_order``; a marker falls in exactly one
+    category, so none is tested twice.  Rows carry ``mac_cat`` (the
+    category index).  An empty or short category warns."""
+    edges = [float(e) for e in cfg.var_ratio_mac_cat]
+    if not edges or edges != sorted(edges):
+        raise ValueError("var_ratio_mac_cat must be ascending MAC bounds")
+    vr = _VarRatio(grm, fit0, glmm, nok, cfg, binary)
+    bounds = [(0.0 if c == 0 else edges[c - 1],
+               edges[c] if c < len(edges) else math.inf)
+              for c in range(len(edges) + 1)]
+    rows = dict(id=[], maf=[], mac=[], var1=[], var2=[], ratio=[],
+                mac_cat=[])
+    n_rand = len(marker_order)
+    for c, (lo, hi) in enumerate(bounds):
+        num_marker = cfg.num_marker
+        snp_pos = 0
+        cat_ratio = []
+        while snp_pos < n_rand:
+            pending = []
+            while len(cat_ratio) + len(pending) < num_marker \
+                    and snp_pos < n_rand:
+                i_snp = int(marker_order[snp_pos])  # 1-based
+                snp_pos += 1
+                m = vr.marker(codes, i_snp)
+                if m is not None and lo < m[1] <= hi and m[1] > 0:
+                    pending.append((i_snp,) + m)
+            if pending:
+                for (i_snp, af, ac, _), (var1, var2) in zip(
+                        pending, vr.ratios(pending)):
+                    rows["id"].append(i_snp)
+                    rows["maf"].append(af)
+                    rows["mac"].append(ac)
+                    rows["var1"].append(var1)
+                    rows["var2"].append(var2)
+                    rows["ratio"].append(var1 / var2)
+                    rows["mac_cat"].append(c)
+                    cat_ratio.append(var1 / var2)
+                    if verbose:
+                        print(f"    marker {i_snp} (MAC category {c}): maf "
+                              f"{af:.4g}, mac {ac:g}, ratio "
+                              f"{var1 / var2:.6g}")
+            if len(cat_ratio) >= num_marker:
+                if _calc_cv(cat_ratio) > cfg.ratio_cv_cutoff:
+                    num_marker += 10
+                else:
+                    break
+            elif snp_pos >= n_rand:
+                break
+        if not cat_ratio:
+            warnings.warn(
+                f"variance-ratio MAC category ({lo}, {hi}] matched no GRM "
+                f"marker; the scan falls back to the overall mean there")
+        elif len(cat_ratio) < cfg.num_marker:
+            warnings.warn(
+                f"variance-ratio MAC category ({lo}, {hi}] found only "
+                f"{len(cat_ratio)}/{cfg.num_marker} markers")
     return rows
 
 
@@ -651,15 +855,16 @@ def fit_null_glmm(formula: str, data, gdsfile,
     dict that receives the wall seconds of ingest (``ingest_s``), AI-REML
     (``aireml_s``) and the variance ratio (``var_ratio_s``), the outer
     iterations, and the GRM products and PCG iterations run.
+
+    ``config.checkpoint`` makes the fit resumable (see :func:`fit_ai_pcg`
+    and :func:`calc_var_ratio`; the files are removed once the model is
+    assembled); ``config.var_ratio_mac_cat`` estimates a variance ratio
+    per MAC category (:func:`calc_var_ratio_cat`).
     """
     cfg = config
     dev = check_device(device)
     if cfg.trait_type not in ("binary", "quantitative"):
         raise ValueError(f"Invalid trait type {cfg.trait_type!r}")
-    if cfg.checkpoint:
-        raise _not_ported("Fit checkpoints", "item 8")
-    if cfg.var_ratio_mac_cat:
-        raise _not_ported("MAC-categorized variance ratios", "item 8")
     if mesh is not None:
         raise _not_ported("A multi-device fit", "item 10")
     seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
@@ -676,8 +881,9 @@ def fit_null_glmm(formula: str, data, gdsfile,
                                          verbose)
     t2 = time.perf_counter()
 
-    vr = calc_var_ratio(grm, prep["codes"], fit0, glmm, nok, cfg,
-                        prep["marker_order"], binary=binary, verbose=verbose)
+    vr_fn = calc_var_ratio_cat if cfg.var_ratio_mac_cat else calc_var_ratio
+    vr = vr_fn(grm, prep["codes"], fit0, glmm, nok, cfg,
+               prep["marker_order"], binary=binary, verbose=verbose)
     t3 = time.perf_counter()
     if instrument is not None:
         instrument.update(ingest_s=t1 - t0, aireml_s=t2 - t1,
@@ -690,6 +896,7 @@ def fit_null_glmm(formula: str, data, gdsfile,
                             prep["X_names"], prep["x_transform"],
                             prep["variant_id"], prep["sample_id"],
                             len(y_raw))
+    clear_checkpoint(cfg)   # fit + variance ratio complete: drop the state
     if model_savefn:
         model.save(model_savefn)
     return model
@@ -897,6 +1104,9 @@ def _assemble_model(cfg, glmm, vr, nok, X_qrr, X_names, x_transform,
     ord_ = np.argsort(np.asarray(vr["id"], dtype=np.int64), kind="stable")
     var_ratio = {k: np.asarray(v)[ord_] for k, v in vr.items()}
     var_ratio["id"] = variant_id[var_ratio["id"].astype(np.int64) - 1]
+    if cfg.var_ratio_mac_cat:
+        # category bin bounds travel with the model (not per-row data)
+        var_ratio["mac_bins"] = np.asarray(cfg.var_ratio_mac_cat, float)
 
     # un-rotate coefficients through qr.R (R/saige_main.r:616-623)
     if x_transform:

@@ -1,10 +1,11 @@
-"""Null-model container: fit results, ``.npz`` (de)serialization, scan
-preparation.
+"""Null-model container: fit results, (de)serialization, scan preparation.
 
 The counterpart of ``saigegds_tpu/models/nullmodel.py``.  ``NullModel``
 mirrors the reference's ``ClassSAIGE_NullModel`` S3 object
-(``R/saige_main.r:616-628``) and holds numpy arrays; its ``.npz`` format is
-the JAX package's, so a model saved there loads here.
+(``R/saige_main.r:616-628``) and holds numpy arrays.  It reads and writes
+the JAX package's ``.npz`` and the reference's ``.rds`` / ``.rda`` files,
+so a model fitted by the R package, the JAX package or this one loads in
+the other two.
 :meth:`NullModel.scan_model` places the scan's float64 state on a torch
 device.
 """
@@ -20,11 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..io.rds import RObject, read_rds, strip
 from ..ops._cuda import check_device
-
-_NOT_PORTED_R = ("R model files (.rds/.rda) are not read by the PyTorch "
-                 "port yet (ROADMAP Queue A, item 8): load the "
-                 "model with saigegds_tpu and save it as .npz")
 
 
 @dataclass
@@ -92,21 +90,121 @@ class NullModel:
 
     @classmethod
     def load(cls, path_or_obj) -> "NullModel":
-        """Load from .npz (the JAX package's format) or pass through."""
+        """Load from .rds / .rda / .RData (R package format), .npz (the
+        JAX package's), or pass through."""
         if isinstance(path_or_obj, NullModel):
             return path_or_obj
         path = str(path_or_obj)
         low = path.lower()
-        if low.endswith((".rds", ".rda", ".rdata")):
-            raise NotImplementedError(_NOT_PORTED_R)
+        if low.endswith(".rds"):
+            return cls.from_r_object(read_rds(path))
+        if low.endswith((".rda", ".rdata")):
+            # the reference's .check_modobj does get(load(fn)): take the
+            # single stored object
+            from ..io.rds import read_rdata
+            objs = read_rdata(path)
+            return cls.from_r_object(next(iter(objs.values())))
         if path.endswith(".npz"):
             return cls.from_npz(path)
         raise ValueError(f"unknown model file format: {path}")
 
+    @classmethod
+    def from_r_object(cls, m) -> "NullModel":
+        """Decode a ClassSAIGE_NullModel read from an R file."""
+        nok = m["obj.noK"]
+        N = len(strip(nok["y"]))
+        coef = m["coefficients"]
+        coef_names = coef.names if isinstance(coef, RObject) else None
+        K = len(strip(coef))
+
+        def mat(x, shape):      # R's column-major payload, C-ordered here
+            return np.ascontiguousarray(np.asarray(
+                strip(x), dtype=np.float64).reshape(shape, order="F"))
+
+        def vec(x):
+            return np.asarray(strip(x), np.float64)
+
+        vr = m["var.ratio"]
+        vrd = {k: np.asarray(strip(vr[k])) for k in vr.names} \
+            if vr is not None else {}
+        if isinstance(vr, RObject) and "mac.bins" in vr.attributes:
+            vrd["mac_bins"] = np.asarray(strip(vr.attributes["mac.bins"]))
+        return cls(
+            trait_type=str(strip(m["trait.type"])[0]),
+            coefficients=vec(coef),
+            coef_names=list(coef_names) if coef_names
+            else [f"b{i}" for i in range(K)],
+            tau=vec(m["tau"]),
+            linear_predictors=vec(m["linear.predictors"]),
+            fitted_values=vec(m["fitted.values"]),
+            residuals=vec(m["residuals"]),
+            cov=mat(m["cov"], (K, K)),
+            converged=bool(np.asarray(strip(m["converged"]))[0]),
+            y=vec(nok["y"]), mu=vec(nok["mu"]), res=vec(nok["res"]),
+            V=vec(nok["V"]),
+            X1=mat(nok["X1"], (N, K)),
+            XV=mat(nok["XV"], (K, N)),
+            XXVX_inv=mat(nok["XXVX_inv"], (N, K)),
+            var_ratio=vrd,
+            sample_id=np.asarray(strip(m["sample.id"])),
+            variant_id=np.asarray(strip(m["variant.id"])),
+        )
+
+    def to_r_object(self) -> RObject:
+        """The R-side ``ClassSAIGE_NullModel`` structure (the inverse of
+        :meth:`from_r_object`; layout per R/saige_main.r:616-628).
+        Matrices are written column-major; the category bounds of
+        MAC-categorized ratios travel as the ``mac.bins`` attribute of the
+        ``var.ratio`` data.frame (they are not per-row data)."""
+        K = len(self.coefficients)
+        vr = dict(self.var_ratio)
+        mac_bins = vr.pop("mac_bins", None)
+        vr_n = len(np.asarray(vr.get("ratio", [])))
+        vr_attrs = {"class": "data.frame",
+                    "row.names": np.asarray([-2147483648, -vr_n], np.int32)}
+        if mac_bins is not None:
+            vr_attrs["mac.bins"] = np.asarray(mac_bins, np.float64)
+        var_ratio = RObject({k: np.asarray(v) for k, v in vr.items()},
+                            vr_attrs)
+        f64 = lambda a: np.asarray(a, np.float64)
+        obj_nok = {
+            "y": f64(self.y), "mu": f64(self.mu), "res": f64(self.res),
+            "V": f64(self.V), "X1": f64(self.X1), "XV": f64(self.XV),
+            "XXVX_inv": f64(self.XXVX_inv),
+        }
+        body = {
+            "coefficients": RObject(
+                f64(self.coefficients),
+                {"names": np.asarray(self.coef_names, object)}),
+            "tau": RObject(f64(self.tau),
+                           {"names": np.asarray(["Sigma_E", "Sigma_G"],
+                                                object)}),
+            "linear.predictors": f64(self.linear_predictors),
+            "fitted.values": f64(self.fitted_values),
+            "residuals": f64(self.residuals),
+            "cov": f64(self.cov).reshape(K, K),
+            "converged": bool(self.converged),
+            "obj.noK": obj_nok,
+            "var.ratio": var_ratio,
+            "trait.type": str(self.trait_type),
+            "sample.id": self.sample_id,
+            "variant.id": self.variant_id,
+        }
+        return RObject(body, {"class": "ClassSAIGE_NullModel"})
+
     def save(self, path: str):
-        """Save to .npz, readable by both packages."""
-        if path.lower().endswith((".rds", ".rda", ".rdata")):
-            raise NotImplementedError(_NOT_PORTED_R)
+        """Save to .npz (both Python packages), .rds or .rda / .RData (the
+        reference's ``save(glmm, file=)`` container, R/saige_main.r:630-643,
+        with the object named ``glmm``)."""
+        low = path.lower()
+        if low.endswith(".rds"):
+            from ..io.rds_write import write_rds
+            write_rds(path, self.to_r_object())
+            return
+        if low.endswith((".rda", ".rdata")):
+            from ..io.rds_write import write_rdata
+            write_rdata(path, {"glmm": self.to_r_object()})
+            return
         if not path.endswith(".npz"):
             path += ".npz"
         np.savez_compressed(

@@ -11,6 +11,21 @@ tau_E != 1.
 """
 
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's tests (import it into a test
+    module to apply it there).  Their tensors are small, so the thread pool
+    only adds a barrier per operation; with several test workers on one
+    host, each pool's spinning threads would otherwise oversubscribe the
+    cores and stall every barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def synth_codes(rng, n_variants: int, n_samples: int, y=None,
@@ -118,3 +133,18 @@ def jax_quant_null_model(X, y, var_ratio: dict, sample_id=None):
         sample_id=np.arange(1, len(y) + 1, dtype=np.int32)
         if sample_id is None else sample_id,
         variant_id=None)
+
+
+def synth_dosages(rng, codes: np.ndarray, integer_rows=(),
+                  sd: float = 0.15) -> np.ndarray:
+    """f64 [M, N] imputed ALT dosages from hard calls: each call plus a
+    Gaussian imputation noise, clipped to [0, 2] and rounded to 0.001 (as
+    an imputed VCF's DS field carries them; not f32-exact), NaN where the
+    call is missing.  ``integer_rows`` keep their hard calls (typed
+    variants: f32-exact and all 0/1/2/NaN)."""
+    ds = np.clip(codes + rng.normal(size=codes.shape) * sd, 0.0, 2.0)
+    ds = np.round(ds, 3)
+    rows = np.asarray(integer_rows, dtype=np.int64)
+    ds[rows] = codes[rows]
+    ds[codes == 3] = np.nan
+    return ds

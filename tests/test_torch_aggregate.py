@@ -23,6 +23,7 @@ affine value, so phase 1 agrees to ~1e-13 and SPA to ~1e-12.
 import numpy as np
 import pytest
 
+from _torch_synth import one_torch_thread  # noqa: F401 (autouse)
 from _torch_synth import jax_null_model, synth_pheno, var_ratio_table
 from saigegds_tpu.assoc import aggregate as jagg
 from saigegds_tpu.config import AggregateConfig as JaxAggregateConfig
@@ -264,16 +265,6 @@ def test_acat_matches_jax():
         assert sg.acat_p(p, w) == jstats.acat_p(p, w)
         assert sg.acat_p_maf(p, w / 10) == jstats.acat_p_maf(p, w / 10)
     assert np.isnan(sg.acat_p([0.2, 1.5]))
-
-
-@pytest.mark.parametrize("case", ["dosage"])
-def test_unported_options_raise(data, case):
-    gds, jm, _ = data
-    model = sg.NullModel.from_arrays(vars(jm))
-    config = sg.AggregateConfig(dsnode="annotation/format/DS")
-    tu = sg.units_from_groups(SeqData(gds), {"a": [1, 2, 3]})
-    with pytest.raises(NotImplementedError):
-        sg.assoc_burden(gds, model, tu, config, device="cpu")
 
 
 def test_saved_set_reads_back(data, tmp_path):

@@ -3,7 +3,11 @@
 * The port imports and scans with ``jax`` made unimportable, fits (a
   binary and a quantitative trait) and runs the aggregate tests (ACAT-O
   of a binary trait, the burden test of a quantitative one) with ``jax``
-  and ``pandas`` made unimportable, and loads no
+  and ``pandas`` made unimportable; likewise it scans a DS node and a
+  ``$dosage_alt`` node, runs ``assoc_spa_user``, the burden test and
+  ACAT-O over DS units, fits with ``checkpoint=`` and
+  ``var_ratio_mac_cat=``, and reads and writes ``.rds``/``.rda`` models
+  and tables; and it loads no
   ``saigegds_tpu`` module on the way (``saigegds_tpu/__init__.py`` imports
   jax, so the port copies the framework-free host layers instead).
 * Those copies stay byte-identical to their originals, so a fix to one is
@@ -20,7 +24,8 @@ import pytest
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 PORT = os.path.join(ROOT, "saigegds_tpu_torch")
 VERBATIM = ["config.py", "io/gds.py", "io/seqarray.py", "io/gds_write.py",
-            "models/glm.py", "utils/rrandom.py", "native/fastio.cpp"]
+            "io/rds.py", "io/rds_write.py", "models/glm.py",
+            "utils/rrandom.py", "native/fastio.cpp"]
 
 _SCAN_WITHOUT_JAX = r"""
 import sys
@@ -166,8 +171,69 @@ print("OK")
 """
 
 
+_DOSAGES_AND_R_FILES_WITHOUT_JAX_OR_PANDAS = r"""
+import os, sys
+sys.modules["jax"] = None          # any import of jax or pandas now raises
+sys.modules["pandas"] = None
+import numpy as np
+import saigegds_tpu_torch as sg
+from saigegds_tpu_torch.io.gds_write import write_dosage_gds, \
+    write_seqarray_gds
+from saigegds_tpu_torch.io.rds import read_rdata, read_rds, strip
+from saigegds_tpu_torch.io.seqarray import SeqData
+
+rng = np.random.default_rng(4)
+N, M = 240, 120
+codes = rng.binomial(2, rng.uniform(0.02, 0.5, (M, 1)), size=(M, N))
+codes = codes.astype(np.int8)
+codes[rng.random((M, N)) < 0.005] = 3
+geno = sys.argv[1]
+write_seqarray_gds(geno, codes, position=np.arange(1, M + 1) * 10)
+ds = np.round(np.clip(codes + rng.normal(size=(M, N)) * 0.1, 0, 2), 3)
+ds[codes == 3] = np.nan
+dsf = geno + ".ds.gds"
+write_dosage_gds(dsf, ds, position=np.arange(1, M + 1) * 10)
+data = {"sample.id": np.arange(1, N + 1), "y": (rng.random(N) < 0.3) * 1.0,
+        "x1": rng.normal(size=N)}
+ck = os.path.join(os.path.dirname(geno), "ck")
+model = sg.fit_null_glmm("y ~ x1", data, geno, sg.NullModelConfig(
+    num_marker=5, maf=0.0, var_ratio_mac_cat=(30.5,), checkpoint=ck),
+    device="cpu")
+assert "mac_bins" in model.var_ratio and not os.path.exists(ck + ".fit.npz")
+for ext in (".rds", ".rda"):
+    model.save(geno + ext)
+    back = sg.NullModel.load(geno + ext)
+    assert np.array_equal(back.X1, model.X1)
+    assert np.array_equal(back.var_ratio["mac_bins"], [30.5])
+cfg = sg.ScanConfig(block_size=32)
+tab = sg.assoc_spa(dsf, geno + ".rds", cfg, res_savefn=geno + ".res.rds",
+                   device="cpu")
+alt = sg.assoc_spa(geno, model, sg.ScanConfig(block_size=32,
+                                              dsnode="$dosage_alt"),
+                   res_savefn=geno + ".res.rda", device="cpu")
+user = sg.assoc_spa_user(lambda s, e: ds[s:e], M, model, cfg, device="cpu")
+assert np.array_equal(user["pval"], tab["pval"])
+assert len(alt["pval"]) and np.array_equal(
+    strip(read_rds(geno + ".res.rds")["pval"]), tab["pval"])
+assert list(read_rdata(geno + ".res.rda")) == [".res"]
+units = sg.sliding_windows(SeqData(dsf), win_size=200, win_shift=100)
+for fn in (sg.assoc_burden, sg.assoc_acat_o):
+    t = fn(dsf, model, units, sg.AggregateConfig(), device="cpu")
+    p = t[[c for c in t if c.startswith("pval")][0]]
+    p = p[np.isfinite(p)]
+    assert len(p) and ((p >= 0) & (p <= 1)).all()
+bad = [m for m in sys.modules
+       if m == "saigegds_tpu" or m.startswith("saigegds_tpu.")
+       or (m.startswith(("jax", "pandas")) and sys.modules[m] is not None)]
+assert not bad, bad
+print("OK")
+"""
+
+
 def _run(code: str, tmp_path):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    # one intra-op thread: the scripts' tensors are small, and parallel
+    # test workers share the cores
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", code, str(tmp_path / "g.gds")],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
@@ -204,6 +270,10 @@ def test_aggregate_runs_without_jax_or_pandas(tmp_path):
 
 def test_quantitative_runs_without_jax_or_pandas(tmp_path):
     _run(_QUANT_WITHOUT_JAX_OR_PANDAS, tmp_path)
+
+
+def test_dosages_and_r_files_without_jax_or_pandas(tmp_path):
+    _run(_DOSAGES_AND_R_FILES_WITHOUT_JAX_OR_PANDAS, tmp_path)
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

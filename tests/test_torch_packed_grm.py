@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_synth import one_torch_thread  # noqa: F401 (autouse)
 from saigegds_tpu_torch.ops import grm_kernel
 from saigegds_tpu_torch.ops.grm import build_grm
 from saigegds_tpu_torch.ops.packed_grm import Packed2GRM, build_packed2_grm, \

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_synth import one_torch_thread  # noqa: F401 (autouse)
 from saigegds_tpu_torch.ops.grm import build_grm
 from saigegds_tpu_torch.ops.packed_grm import Packed2GRM
 from saigegds_tpu_torch.ops.pcg import pcg_solve

@@ -18,6 +18,7 @@ pattern (the reference contract is 1e-7).  No row goes to SPA.
 import numpy as np
 import pytest
 
+from _torch_synth import one_torch_thread  # noqa: F401 (autouse)
 from _torch_synth import jax_quant_null_model, synth_quant_pheno, \
     var_ratio_table
 from test_torch_aggregate import N_SAMPLES, N_VARIANTS, _assert_same, \

@@ -27,6 +27,7 @@ import pandas as pd
 import pytest
 import torch
 
+from _torch_synth import one_torch_thread  # noqa: F401 (autouse)
 from _torch_synth import synth_quant_pheno
 import saigegds_tpu
 import saigegds_tpu_torch as sgt

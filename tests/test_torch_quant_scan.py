@@ -20,6 +20,7 @@ import pandas as pd
 import pytest
 import torch
 
+from _torch_synth import one_torch_thread  # noqa: F401 (autouse)
 from _torch_synth import jax_quant_null_model, synth_codes, \
     synth_quant_pheno, var_ratio_table
 import saigegds_tpu

@@ -25,6 +25,7 @@ sums of the model side and of SPA change their order.
 import numpy as np
 import pytest
 
+from _torch_synth import one_torch_thread  # noqa: F401 (autouse)
 from _torch_synth import jax_null_model, synth_codes, synth_pheno, \
     var_ratio_table
 import saigegds_tpu

@@ -21,6 +21,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
+from _torch_synth import one_torch_thread  # noqa: F401 (autouse)
 from _torch_synth import jax_null_model, synth_codes, synth_pheno, \
     var_ratio_table
 import saigegds_tpu
@@ -193,20 +194,6 @@ def test_int8_route_matches_default(data, scans):
     for c in got:
         np.testing.assert_array_equal(got[c], default[c], err_msg=c)
     _assert_tables_match(got, want)
-
-
-@pytest.mark.parametrize("case", ["rds_model", "dosage"])
-def test_unported_options_raise(data, case, tmp_path):
-    tmp, gds, X, y = data
-    jm = jax_null_model(X, y, var_ratio_table("pooled"))
-    model = NullModel.from_arrays(vars(jm))
-    config = ScanConfig(block_size=BLOCK)
-    if case == "rds_model":
-        model = str(tmp_path / "model.rds")
-    else:
-        config = ScanConfig(block_size=BLOCK, dsnode="annotation/format/DS")
-    with pytest.raises(NotImplementedError):
-        assoc_spa(gds, model, config, device="cpu")
 
 
 def test_public_names():

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_synth import one_torch_thread  # noqa: F401 (autouse)
 from _torch_synth import jax_null_model, synth_codes, synth_pheno, \
     var_ratio_table
 from saigegds_tpu.ops import score_packed as jsp
