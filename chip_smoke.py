@@ -75,17 +75,17 @@ and prints no result line):
    minor alleles, 40% rare, 10% low-frequency, 0.5% missing), 512 gene
    units of 8-64 contiguous variants (8 of them enriched in the fit's
    cases), read frame by frame as a file above the whole-matrix cache is;
-   ``assoc_acat_o(..., device="cuda")`` over the first 256 units (5 of
+   ``assoc_acat_o(..., device="cuda")`` over the first 128 units (3 of
    them enriched) with the default
    ``AggregateConfig``: every p-value in [0, 1], some rows through SPA, and
    B5 launched once per sparse payload, B4 once per sparse single-variant
    payload; ``assoc_burden`` and ``assoc_acat_v`` on the card over the
    first 64 units equal ACAT-O's burden and ACAT-V columns within 1e-12;
-   the first 32 units on the CPU agree with the card within 1e-10 relative
+   the first 16 units on the CPU agree with the card within 1e-10 relative
    on every p-value column, with the same NaN pattern;
 10. ``assoc_burden`` of the quantitative model over phase 9's GDS and
    units: B5 once per sparse payload and no other kernel, no row through
-   SPA, every p-value in [0, 1], the first 32 units on the CPU within
+   SPA, every p-value in [0, 1], the first 16 units on the CPU within
    1e-10 relative with the same NaN pattern; ``assoc_acat_o`` on the
    quantitative model raises NotImplementedError;
 11. the scan of imputed dosages at N = 430,000: a DS GDS (``annotation/
@@ -105,15 +105,16 @@ and prints no result line):
    its f64 operations at 34 TFLOP/s).  Then the quantitative model's scan
    of the same file, with the same checks (nothing to SPA);
 12. the dense route against the packed route: ``dsnode="$dosage_alt"``
-   over phase 7's GDS from phase 4's model; its table equals phase 7's
-   packed table within 1e-10 relative, the same variants and SPA set;
+   over phase 7's first 1,024 variants from phase 4's model; its table
+   equals phase 7's packed table there within 1e-10 relative, the same
+   variants and SPA set;
    then ``assoc_spa_user`` over phase 11's first 256 dosages in model
    order, served from a numpy callback, equal within 1e-12 to phase 11's
    scan of the same 256 variants on the card (a scan of the whole file
    batches its SPA rows across blocks, which moves the last bits);
-13. the gene tests over the DS file: 32 units of 32 contiguous variants;
+13. the gene tests over the DS file: 16 units of 32 contiguous variants;
    ``assoc_acat_o`` from the binary model and ``assoc_burden`` from the
-   quantitative one on the card: every p-value in [0, 1], the first 8
+   quantitative one on the card: every p-value in [0, 1], the first 4
    units on the CPU within 1e-10 with the same NaN pattern; the rows sent
    the packed way (B5/B4 or B3, launched once per payload) and the dense
    way are printed, with the launches;
@@ -127,7 +128,44 @@ and prints no result line):
    category; then the small binary fit of phase 5 with ``checkpoint=``,
    killed in outer iteration 2 (a wrapped ``_fit_tau_binary`` raises) and
    resumed on the card: within 1e-8 of the uninterrupted card fit, with
-   equal outer iterations and the checkpoint files gone.
+   equal outer iterations and the checkpoint files gone;
+16. the PheWAS fit at full width: ``fit_null_glmm_multi`` over phase 4's
+   GDS with P = 4 binary phenotypes (phase 4's ``y`` and three more from
+   the same genetic values at case fractions of about 10%, 20% and 50%),
+   one ingest (counted); every lane converges with tau_G > 0 and finite
+   variance ratios, B1 and B2 launch once per GRM product; the wall time,
+   the products by the kernels' column count C and the PCG iterations are
+   printed beside phase 4's one fit; then the quantitative PheWAS fit
+   (``yq``, ``yq2``) at the small fit's size on the card and on the CPU,
+   within 1e-8 with the same iterations;
+17. the PheWAS scan: ``assoc_spa_multi`` over phase 7's GDS with the four
+   lanes and phase 6's quantitative model (P = 5), in blocks of 1,024: B3
+   launches P times per block, each block is decoded once (``decode_s``
+   beside phase 7's), the quantitative lane's table equals phase 8's
+   within 1e-10, lane 0's first block on the CPU within 1e-10;
+   variants x models per second beside phase 7's variants per second;
+   then the first block again with ``transport_policy="static"``: its
+   rare rows ship as the gap-coded stream, so B5 and B4 launch P times
+   per sparse payload (and B3 P times per 2-bit payload, from the host's
+   own split of the block), lane 0 within 1e-10 of the CPU and every lane
+   within 1e-10 of the 2-bit pass;
+18. GxG: ``gxg_spa`` with phase 4's GDS as the GRM (its first 4,096
+   variants, by ``variant_id=``) and phase 7's GDS as the tested SNPs,
+   16 pairs of common variants, ``use_approx_tau=True`` from tau_G = 0.1
+   (it must end positive): ``pair_batch=8``
+   equals the serial path (with the GLM screen at 1.0) on the first 4
+   pairs within 1e-10, every p-value in [0, 1], B1 and B2 once per
+   product, seconds per pair printed; one pair from the default start
+   (1, 0.5), whose approximate tau_G is printed (0 in both packages at
+   this panel shape, tests/test_torch_gxg_start.py); then full per-pair
+   refits, serial
+   and ``pair_batch=4``, at the small fit's size on the card and on the
+   CPU: within 1e-8, the same PCG iterations and products;
+19. the command line: ``python -m saigegds_tpu_torch`` with ``--device
+   cuda`` in a process of its own for ``fit --pheno-cols``, ``scan`` with
+   two ``--model``, ``gxg``, ``merge`` and ``info`` on the small fit's
+   data; each output against the API's on the card (fits and GxG 1e-8,
+   tables 1e-10, the merge equal, info names the card).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Data is made from a fixed seed; the
@@ -173,7 +211,7 @@ DS_BLOCK = 256          # its scan blocks
 DS_ASSOC = 8            # DS variants tied to the phenotype
 DS_TYPED = (256, 640)   # typed (integer-valued) DS variants
 DS_NOISY, DS_NOISE = 0.1, 0.15   # share of noisy dosages, the noise's sd
-DS_UNITS, DS_UNIT, DS_CPU_UNITS = 32, 32, 8   # DS gene units, their size,
+DS_UNITS, DS_UNIT, DS_CPU_UNITS = 16, 32, 4   # DS gene units, their size,
 #                                              units held against the CPU
 RTOL_USER = 1e-12       # assoc_spa_user against the DS scan's rows
 CAT_EDGES = (10.5, 20.5)  # MAC categories of the categorized fit
@@ -184,11 +222,23 @@ B4_SHAPES = [(37, 1031), (256, N_SAMPLES)]     # B, N at C = 128
 B5_ROWS = (256, 2048)   # rare-variant streams at N = N_SAMPLES
 N_AGG = 16_384          # variants of the aggregate phase's GDS
 N_UNITS = 512           # gene units of 8-64 contiguous variants
-N_UNITS_RUN = 256       # the units the aggregate tests run (the first)
+N_UNITS_RUN = 128       # the units the aggregate tests run (the first)
 ENRICHED_UNITS = (1, 40, 100, 170, 250, 330, 410, 490)
-AGG_SUB, AGG_CPU = 64, 32   # units of the burden/ACAT-V and CPU checks
+AGG_SUB, AGG_CPU = 64, 16   # units of the burden/ACAT-V and CPU checks
 RTOL_AGG = 1e-12        # burden and ACAT-V against ACAT-O on the card
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
+N_ALT = 1024            # phase 7's variants that the $dosage_alt scan reads
+PHEWAS_CASES = (10, 20, 50)   # case % of the PheWAS fit's extra phenotypes
+N_PAIRS, GXG_M = 16, 4096     # GxG pairs; GRM variants of its panel
+GXG_BATCH, GXG_SERIAL = 8, 4  # its pair batch; pairs also run serially
+GXG_SMALL_PAIRS = ((11, 12), (40, 90), (75, 150), (300, 500))
+# GxG's start of tau_G for the batched-against-serial check: from the
+# default start (1, 0.5) the base fit on a 4,096-variant panel of the
+# 16,384 causal variants ends at tau_G = 0, in both packages
+# (tests/test_torch_gxg_start.py), and a pair's solves then never use
+# the GRM; from 0.1 (near the panel's quarter of the genetic variance) it
+# ends positive, so the check covers the GLMM
+GXG_TAU_INIT = (0.0, 0.1)
 INT8_OPS_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 
 
@@ -712,6 +762,22 @@ def make_fit_data(n_samples: int, n_variants: int, device, seed: int,
     e = (e - e.mean()) / e.std() * np.sqrt(g.var() * (1 - H2_Q) / H2_Q)
     data = {"sample.id": np.arange(1, n_samples + 1, dtype=np.int32),
             "y": y, "yq": X @ alpha + g + e}
+    # the PheWAS phenotypes, drawn after y and yq: binary traits of the
+    # same genetic values at other case fractions, and a second
+    # quantitative trait with a fresh noise
+    for pct in PHEWAS_CASES:
+        lo, hi = -20.0, 20.0
+        for _ in range(60):              # intercept of that prevalence
+            c = (lo + hi) / 2
+            if np.mean(1 / (1 + np.exp(-(X @ alpha + c + g)))) < pct / 100:
+                lo = c
+            else:
+                hi = c
+        data[f"yb{pct}"] = (rng.random(n_samples) < 1 / (1 + np.exp(
+            -(X @ alpha + c + g)))).astype(np.float64)
+    e2 = np.exp(rng.normal(size=n_samples) * 0.6)
+    data["yq2"] = X @ alpha + g + (e2 - e2.mean()) / e2.std() * np.sqrt(
+        g.var() * (1 - H2_Q) / H2_Q)
     data.update({f"x{i}": X[:, i] for i in range(1, N_COV + 1)})
     return codes, data
 
@@ -1223,16 +1289,20 @@ def dense_vs_packed(gds7: str, tab7: dict, model, ds: dict):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    tab, inst, wall = scan(gds7, model, "cuda", dsnode="$dosage_alt")
+    mask = np.zeros(N_VARIANTS, bool)
+    mask[:N_ALT] = True
+    tab, inst, wall = scan(gds7, model, "cuda", dsnode="$dosage_alt",
+                           variant_mask=mask)
     expect_launches("the $dosage_alt scan", {})
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if not np.array_equal(tab["id"], tab7["id"]):
+    # phase 7's GDS numbers its variants 1..N_VARIANTS
+    if not np.array_equal(tab["id"], tab7["id"][tab7["id"] <= N_ALT]):
         raise AssertionError("$dosage_alt and the packed route tested "
                              "different variants")
-    worst = compare_dense(tab, tab7, RTOL)
-    log(f"$dosage_alt scan of phase 7's GDS on the card: {len(tab['id'])} "
-        f"variants, {inst['spa_n']} through SPA, {wall:.2f} s wall "
-        f"({N_VARIANTS / wall:.1f} variants/s, decode "
+    worst = compare_dense(tab7, tab, RTOL)
+    log(f"$dosage_alt scan of phase 7's first {N_ALT} variants on the card: "
+        f"{len(tab['id'])} variants, {inst['spa_n']} through SPA, "
+        f"{wall:.2f} s wall ({N_ALT / wall:.1f} variants/s, decode "
         f"{np.sum(inst['decode_s']):.2f} s, pack "
         f"{np.sum(inst['pack_s']):.2f} s, upload "
         f"{np.sum(inst['upload_s']):.2f} s, SPA {inst['spa_s']:.2f} s), "
@@ -1436,6 +1506,403 @@ def fit_options(work: str, device, gds_s: str, data_s: dict,
         f"checkpoint files removed; resume {inst_res['wall_s']:.1f} s")
 
 
+def phewas_fit(gds: str, data: dict, one_fit: dict, gds_s: str,
+               data_s: dict, device):
+    """Phase 16: the PheWAS fit at full width (P binary lanes over one
+    ingest of phase 4's GDS), then the quantitative PheWAS fit at the small
+    fit's size on the card and on the CPU."""
+    import torch
+    from saigegds_tpu_torch import NullModelConfig, fit_null_glmm_multi
+    from saigegds_tpu_torch.models import fitnull
+
+    resps = ["y"] + [f"yb{pct}" for pct in PHEWAS_CASES]
+    formulas = [f"{r} ~ {FORMULA.split('~')[1].strip()}" for r in resps]
+    ingests = [0]
+    real = fitnull._prepare_fit
+
+    def counted(*a, **k):
+        ingests[0] += 1
+        return real(*a, **k)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    inst = {}
+    fitnull._prepare_fit = counted
+    t0 = time.perf_counter()
+    try:
+        models = fit_null_glmm_multi(formulas, data, gds, NullModelConfig(),
+                                     instrument=inst, device=device)
+    finally:
+        fitnull._prepare_fit = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = expect_launches("the PheWAS fit", {
+        "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"]})
+    if ingests[0] != 1:
+        raise AssertionError(f"the PheWAS fit ingested {ingests[0]} times")
+    for m in models:
+        check_fit(m)
+    P = len(models)
+    log(f"PheWAS fit on the card: {P} binary phenotypes ({', '.join(resps)}; "
+        f"case fractions "
+        f"{', '.join(f'{data[r].mean():.3f}' for r in resps)}) over one "
+        f"ingest; tau_G {[round(float(m.tau[1]), 6) for m in models]}, "
+        f"outer iterations {inst['outer_iterations']}, "
+        f"{inst['pcg_iterations']} PCG iterations, {inst['matvecs']} GRM "
+        f"products (by C: {json.dumps(inst['product_widths'])}), B1 "
+        f"launches {counts['plane_dot_fwd']}, B2 {counts['plane_dot_t']}; "
+        f"{wall:.1f} s wall = ingest {inst['ingest_s']:.1f} + AI-REML "
+        f"{inst['aireml_s']:.1f} + variance ratio {inst['var_ratio_s']:.1f} s "
+        f"({[len(m.var_ratio['ratio']) for m in models]} markers); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  beside phase 4's one fit of y: {one_fit['matvecs']} products "
+        f"(by C: {json.dumps(one_fit['product_widths'])}), "
+        f"{one_fit['pcg_iterations']} PCG iterations, "
+        f"{one_fit['wall_s']:.1f} s wall; {P} fits one by one would take "
+        f"about {P * one_fit['matvecs']} products and {P} ingests (phase "
+        f"4's counts times {P}; the other {P - 1} single fits are not run)")
+
+    # the quantitative PheWAS fit, small, on the card and on the CPU
+    quant = ["yq ~ x1 + x2 + x3", "yq2 ~ x1 + x2 + x3"]
+    cfg = NullModelConfig(trait_type="quantitative")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        inst_s = {}
+        t0 = time.perf_counter()
+        ms = fit_null_glmm_multi(quant, data_s, gds_s, cfg,
+                                 instrument=inst_s, device=dev)
+        out[dev] = (ms, inst_s, time.perf_counter() - t0)
+    (gpu, ig, tg), (cpu, ic, tc) = out["cuda"], out["cpu"]
+    for k in ("outer_iterations", "pcg_iterations", "matvecs"):
+        if ig[k] != ic[k]:
+            raise AssertionError(f"quantitative PheWAS fit {k}: {ig[k]} on "
+                                 f"the card, {ic[k]} on the CPU")
+    worst = 0.0
+    for a, b in zip(gpu, cpu):
+        check_fit(b)
+        if not np.array_equal(a.var_ratio["id"], b.var_ratio["id"]):
+            raise AssertionError("quantitative PheWAS markers differ")
+        worst = max([worst] + [max_rel(getattr(a, k), getattr(b, k), k)
+                               for k in ("tau", "coefficients")]
+                    + [max_rel(a.var_ratio["ratio"], b.var_ratio["ratio"],
+                               "ratio")])
+    if worst > RTOL_FIT:
+        raise AssertionError(f"quantitative PheWAS fit card vs CPU: "
+                             f"{worst:.3e} > {RTOL_FIT}")
+    log(f"quantitative PheWAS fit ({FIT_SMALL[0]} x {FIT_SMALL[1]}, "
+        f"{len(quant)} lanes): card vs CPU max relative error {worst:.3e} "
+        f"(limit {RTOL_FIT}), outer iterations {ic['outer_iterations']} and "
+        f"{ic['pcg_iterations']} PCG iterations on both; {tg:.1f} s on the "
+        f"card, {tc:.1f} s on the CPU")
+    return models, dict(inst, wall_s=wall)
+
+
+def phewas_scan(gds7: str, models: list, model_q, scan7: dict,
+                tab8: dict):
+    """Phase 17: assoc_spa_multi over phase 7's GDS with the PheWAS lanes
+    and phase 6's quantitative model, in one pass of the genotypes."""
+    import torch
+    from saigegds_tpu_torch import ScanConfig, assoc_spa_multi
+
+    lanes = list(models) + [model_q]
+    P = len(lanes)
+    n_blocks = -(-N_VARIANTS // BLOCK)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    inst = {}
+    t0 = time.perf_counter()
+    tabs = assoc_spa_multi(gds7, lanes, ScanConfig(block_size=BLOCK),
+                           instrument=inst, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = expect_launches("the PheWAS scan",
+                             {"indicator_dot_2bit": P * n_blocks})
+    if len(inst["decode_s"]) != n_blocks or len(inst["pack_s"]) != n_blocks:
+        raise AssertionError("the PheWAS scan did not decode each block "
+                             "once")
+    for tab in tabs:
+        check_table(tab)
+        if not np.array_equal(tab["id"], tabs[0]["id"]):
+            raise AssertionError("the lanes tested different variants")
+    if "p.norm" in tabs[-1] or "converged" in tabs[-1]:
+        raise AssertionError("the quantitative lane has p.norm/converged")
+    worst_q = compare_tables(tabs[-1], tab8)
+    decode = float(np.sum(inst["decode_s"]))
+    log(f"PheWAS scan on the card: {P} models ({P - 1} binary, 1 "
+        f"quantitative) x {N_VARIANTS} variants in one pass, "
+        f"{len(tabs[0]['id'])} tested per model, {inst['spa_n']} rows "
+        f"through SPA; {wall:.2f} s wall, {N_VARIANTS * P / wall:.1f} "
+        f"variants x models / s against phase 7's "
+        f"{N_VARIANTS / scan7['wall']:.1f} variants/s for one model; B3 "
+        f"launches {counts['indicator_dot_2bit']} ({P} per block); decode "
+        f"{decode:.2f} s for {n_blocks} blocks, phase 7's "
+        f"{scan7['decode_s']:.2f} s; the quantitative lane within "
+        f"{worst_q:.3e} of phase 8's table (limit {RTOL}); peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    mask = np.zeros(N_VARIANTS, bool)
+    mask[:BLOCK] = True
+    t0 = time.perf_counter()
+    cpu = assoc_spa_multi(gds7, lanes[:1], ScanConfig(block_size=BLOCK),
+                          variant_mask=mask, device="cpu")[0]
+    worst = compare_tables(tabs[0], cpu)
+    log(f"lane 0's first block on the CPU: {len(cpu['pval'])} rows within "
+        f"{worst:.3e} of the card's (limit {RTOL}), "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the first block again on the sparse route: its rare rows ship as the
+    # gap-coded stream, which each model decodes (B5) and scores (B4)
+    from saigegds_tpu_torch.assoc.single import _match_samples, _packed_parts
+    from saigegds_tpu_torch.io.seqarray import SeqData
+    seq = SeqData(gds7)
+    cols, _ = _match_samples(seq.sample_id, lanes[0].sample_id)
+    _, G = next(seq.iter_code_blocks(BLOCK, variant_mask=mask))
+    parts = _packed_parts(np.take(G, cols, axis=1))
+    del G
+    n_sparse = sum(isinstance(pl, tuple) for _, pl in parts)
+    n_rows = sum(len(r) for r, pl in parts if isinstance(pl, tuple))
+    if not n_sparse:
+        raise AssertionError("the first block has no sparse payload")
+    reset_launches()
+    t0 = time.perf_counter()
+    static = assoc_spa_multi(
+        gds7, lanes, ScanConfig(block_size=BLOCK, transport_policy="static"),
+        variant_mask=mask, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = expect_launches("the PheWAS scan's sparse route", {
+        "decode_codes": P * n_sparse, "indicator_dot": P * n_sparse,
+        "indicator_dot_2bit": P * (len(parts) - n_sparse)})
+    worst_s = compare_tables(static[0], cpu)
+    worst_l = max(compare_tables(tab, st) for tab, st in zip(tabs, static))
+    log(f"the first block on the sparse route (transport_policy=\"static\"), "
+        f"{P} models: {n_rows} of {BLOCK} rows in {n_sparse} sparse "
+        f"payload(s), {len(parts) - n_sparse} 2-bit; B5 "
+        f"{got['decode_codes']}, B4 {got['indicator_dot']}, B3 "
+        f"{got['indicator_dot_2bit']} launches; lane 0 within {worst_s:.3e} "
+        f"of the CPU's, every lane within {worst_l:.3e} of the 2-bit "
+        f"pass (limit {RTOL}), {wall:.1f} s")
+    return counts
+
+
+def gxg_phase(gds_fit: str, gds7: str, tab7: dict, data: dict, gds_s: str,
+              data_s: dict):
+    """Phase 18: GxG at full width with approximate tau (phase 4's GDS as
+    the GRM, cut to its first GXG_M variants, and phase 7's GDS as the
+    tested SNPs), batched against serial; then full per-pair refits at the
+    small fit's size on the card and on the CPU."""
+    import torch
+    from saigegds_tpu_torch import NullModelConfig, gxg_spa
+
+    # pairs of common variants of phase 7's GDS, past its enriched ones
+    af = tab7["AF.alt"]
+    common = tab7["id"][(tab7["id"] > N_ASSOC) & (af > 0.1) & (af < 0.9)]
+    ids = common[:2 * N_PAIRS]
+    pairs = {"snp1": ids[0::2], "snp2": ids[1::2]}
+    panel = np.arange(1, GXG_M + 1)
+    formula = FORMULA
+    out = {}
+    for name, kw in (("batched", dict(pair_batch=GXG_BATCH)),
+                     ("serial", dict(glm_threshold=1.0))):
+        sel = pairs if name == "batched" else \
+            {k: v[:GXG_SERIAL] for k, v in pairs.items()}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        inst = {}
+        t0 = time.perf_counter()
+        tab = gxg_spa(formula, data, gds_fit, sel, gds_assoc=gds7,
+                      config=NullModelConfig(tau_init=GXG_TAU_INIT),
+                      use_approx_tau=True, variant_id=panel,
+                      instrument=inst, device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = expect_launches(f"GxG, {name}", {
+            "plane_dot_fwd": inst["matvecs"],
+            "plane_dot_t": inst["matvecs"]})
+        p = tab["pval"]
+        if not (np.isfinite(p).all() and ((p >= 0) & (p <= 1)).all()):
+            raise AssertionError(f"GxG {name}: p-values outside [0, 1]")
+        if not tab["tau_G"][0] > 0:
+            raise AssertionError(f"GxG {name}: approximate tau_G "
+                                 f"{tab['tau_G'][0]} is not positive")
+        n = len(p)
+        log(f"GxG on the card, {name} ({n} pairs, GRM panel {GXG_M} x "
+            f"{N_SAMPLES}, tested SNPs from phase 7's GDS, approximate "
+            f"tau {tab['tau_G'][0]:.6f}{', GLM screen at 1.0' if 'glm_threshold' in kw else ''}): "
+            f"{wall:.1f} s wall = GRM build {inst['ingest_s']:.1f} + base "
+            f"fit {inst['base_fit_s']:.1f} + pairs {inst['pairs_s']:.1f} s, "
+            f"{inst['pairs_s'] / n:.3f} s per pair; {inst['matvecs']} GRM "
+            f"products, B1 {counts['plane_dot_fwd']}, B2 "
+            f"{counts['plane_dot_t']}, {inst['pcg_iterations']} PCG "
+            f"iterations; min p {p.min():.3e}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        out[name] = (tab, counts)
+    batched, serial = out["batched"][0], out["serial"][0]
+    if not np.isfinite(serial["p.glm"]).all():
+        raise AssertionError("the GLM screen gave no p-value")
+    worst = max(max_rel(batched[c][:GXG_SERIAL], serial[c], c)
+                for c in ("beta", "SE", "pval", "p.norm", "tau_G"))
+    if worst > RTOL:
+        raise AssertionError(f"GxG batched vs serial: {worst:.3e} > {RTOL}")
+    log(f"GxG pair_batch={GXG_BATCH} against the serial path (with the GLM "
+        f"screen) on the first {GXG_SERIAL} pairs: max relative error "
+        f"{worst:.3e} (limit {RTOL})")
+
+    # the default start, as users run it, on the first pair
+    reset_launches()
+    inst = {}
+    t0 = time.perf_counter()
+    tab = gxg_spa(formula, data, gds_fit, {k: v[:1] for k, v in pairs.items()},
+                  gds_assoc=gds7, use_approx_tau=True, variant_id=panel,
+                  instrument=inst, device="cuda")
+    wall = time.perf_counter() - t0
+    expect_launches("GxG, default start", {"plane_dot_fwd": inst["matvecs"],
+                                           "plane_dot_t": inst["matvecs"]})
+    p = tab["pval"]
+    if not (np.isfinite(p).all() and ((p >= 0) & (p <= 1)).all()):
+        raise AssertionError("GxG default start: p-value outside [0, 1]")
+    log(f"GxG from the default start (1, 0.5), one pair: approximate tau "
+        f"{tab['tau_G'][0]:.6f} (0 in both packages at N = 4,000, "
+        f"tests/test_torch_gxg_start.py), p {p[0]:.6e} against "
+        f"{batched['pval'][0]:.6e} from tau_G = {GXG_TAU_INIT[1]}; "
+        f"{wall:.1f} s wall = GRM build {inst['ingest_s']:.1f} + base fit "
+        f"{inst['base_fit_s']:.1f} + pair {inst['pairs_s']:.1f} s, "
+        f"{inst['matvecs']} GRM products")
+
+    # full per-pair refits at the small size, card against CPU
+    small = {"snp1": [a for a, _ in GXG_SMALL_PAIRS],
+             "snp2": [b for _, b in GXG_SMALL_PAIRS]}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        for pb in (0, len(GXG_SMALL_PAIRS)):
+            inst = {}
+            t0 = time.perf_counter()
+            tab = gxg_spa(formula, data_s, gds_s, small, pair_batch=pb,
+                          instrument=inst, device=dev)
+            res[dev, pb] = (tab, inst, time.perf_counter() - t0)
+    worst = 0.0
+    for pb in (0, len(GXG_SMALL_PAIRS)):
+        (tg, ig, wg), (tc, ic, wc) = res["cuda", pb], res["cpu", pb]
+        for k in ("matvecs", "pcg_iterations"):
+            if ig[k] != ic[k]:
+                raise AssertionError(f"GxG refits (pair_batch={pb}) {k}: "
+                                     f"{ig[k]} on the card, {ic[k]} on the "
+                                     f"CPU")
+        worst = max([worst] + [max_rel(tg[c], tc[c], c) for c in
+                               ("beta", "SE", "pval", "p.norm", "tau_G")])
+        log(f"GxG full refits, pair_batch={pb}, {FIT_SMALL[0]} x "
+            f"{FIT_SMALL[1]}: {ic['pcg_iterations']} PCG iterations and "
+            f"{ic['matvecs']} products on both; {wg:.1f} s on the card "
+            f"({ig['pairs_s'] / len(GXG_SMALL_PAIRS):.3f} s per pair), "
+            f"{wc:.1f} s on the CPU")
+    if worst > RTOL_FIT:
+        raise AssertionError(f"GxG refits card vs CPU: {worst:.3e} > "
+                             f"{RTOL_FIT}")
+    log(f"GxG full refits card vs CPU: max relative error {worst:.3e} "
+        f"(limit {RTOL_FIT})")
+    return out
+
+
+def cli_phase(work: str, gds_s: str, data_s: dict, card: str):
+    """Phase 19: ``python -m saigegds_tpu_torch`` with ``--device cuda``
+    in subprocesses: fit (--pheno-cols), scan (two --model), gxg, merge
+    and info on the small fit's data, each output against the API's on
+    the card."""
+    import csv
+    from saigegds_tpu_torch import (NullModel, fit_null_glmm_multi,
+                                    gxg_spa, load_pval, assoc_spa_multi)
+
+    pheno = os.path.join(work, "pheno.tsv")
+    cols = ["sample.id", "y", "yb20", "x1", "x2", "x3"]
+    with open(pheno, "w", newline="") as f:
+        w = csv.writer(f, delimiter="\t")
+        w.writerow(cols)
+        for row in zip(*(data_s[c].tolist() for c in cols)):
+            w.writerow([repr(x) if isinstance(x, float) else x
+                        for x in row])
+    pairs = os.path.join(work, "pairs.tsv")
+    with open(pairs, "w") as f:
+        f.write("a\tb\n" + "".join(f"{a}\t{b}\n"
+                                   for a, b in GXG_SMALL_PAIRS))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "saigegds_tpu_torch", *args, "--device",
+             "cuda"], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"CLI {args[0]} failed: "
+                                 f"{proc.stderr[-2000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    walls = {}
+    models = os.path.join(work, "cli_m_{}.npz")
+    _, walls["fit"] = cli("fit", "--formula", FORMULA, "--pheno-cols",
+                          "y,yb20", "--pheno", pheno, "--gds", gds_s,
+                          "--out", models)
+    api = fit_null_glmm_multi([FORMULA, FORMULA.replace("y ~", "yb20 ~")],
+                              data_s, gds_s, device="cuda")
+    worst_fit = 0.0
+    for i, m in enumerate(api):
+        got = NullModel.load(models.format(i))
+        worst_fit = max([worst_fit] + [
+            max_rel(getattr(got, k), getattr(m, k), k)
+            for k in ("tau", "coefficients")] + [
+            max_rel(got.var_ratio["ratio"], m.var_ratio["ratio"], "ratio")])
+    if worst_fit > RTOL_FIT:
+        raise AssertionError(f"CLI fit vs API: {worst_fit:.3e} > {RTOL_FIT}")
+
+    shards = os.path.join(work, "cli.part{}.tsv")
+    _, walls["scan"] = cli("scan", "--gds", gds_s, "--model",
+                           models.format(0), "--model", models.format(1),
+                           "--out", shards)
+    want = assoc_spa_multi(gds_s, [models.format(0), models.format(1)],
+                           device="cuda")
+    worst_scan = 0.0
+    for i in range(2):
+        got = load_pval(shards.format(i))
+        worst_scan = max([worst_scan] + [max_rel(got[c], want[i][c], c)
+                                         for c in ("pval", "p.norm", "beta",
+                                                   "SE")])
+    if worst_scan > RTOL:
+        raise AssertionError(f"CLI scan vs API: {worst_scan:.3e} > {RTOL}")
+
+    gx = os.path.join(work, "cli_gxg.tsv")
+    _, walls["gxg"] = cli("gxg", "--formula", FORMULA, "--pheno", pheno,
+                          "--gds", gds_s, "--pairs", pairs, "--out", gx,
+                          "--use-approx-tau", "--pair-batch", "4")
+    want_g = gxg_spa(FORMULA, data_s, gds_s,
+                     {"a": [a for a, _ in GXG_SMALL_PAIRS],
+                      "b": [b for _, b in GXG_SMALL_PAIRS]},
+                     use_approx_tau=True, pair_batch=4, device="cuda")
+    got_g = load_pval(gx)
+    worst_gxg = max(max_rel(got_g[c], want_g[c], c)
+                    for c in ("beta", "SE", "pval", "p.norm", "tau_G"))
+    if worst_gxg > RTOL_FIT:
+        raise AssertionError(f"CLI gxg vs API: {worst_gxg:.3e} > "
+                             f"{RTOL_FIT}")
+
+    merged = os.path.join(work, "cli_merged.tsv")
+    _, walls["merge"] = cli("merge", "--prefix", os.path.join(work, "cli"),
+                            "--out", merged)
+    got_m = load_pval(merged)
+    want_m = load_pval([shards.format(0), shards.format(1)])
+    for c in want_m:
+        if not np.array_equal(np.asarray(got_m[c]).astype(str),
+                              np.asarray(want_m[c]).astype(str)):
+            raise AssertionError(f"CLI merge: column {c} differs")
+    info, walls["info"] = cli("info")
+    if card.split(",")[0].strip() not in info:
+        raise AssertionError(f"CLI info does not name the card: {info!r}")
+    log(f"CLI (--device cuda, one process each): fit --pheno-cols within "
+        f"{worst_fit:.3e} of the API's models (limit {RTOL_FIT}), scan with "
+        f"two --model within {worst_scan:.3e} (limit {RTOL}), gxg within "
+        f"{worst_gxg:.3e} (limit {RTOL_FIT}), merge equal, info "
+        f"{info.strip()!r}; wall s {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+
+
 def main() -> int:
     import torch
     from saigegds_tpu_torch.ops import _cuda
@@ -1492,6 +1959,7 @@ def main() -> int:
         reset_launches()
         ck = os.path.join(work, "ck_fit")
         model, inst = fit(gds_fit, data, "cuda", checkpoint=ck)
+        fit4 = inst
         fit_launches = expect_launches("the fit", {
             "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"]})
         check_fit(model)
@@ -1598,6 +2066,7 @@ def main() -> int:
             f"{N_VARIANTS / wall:.1f} variants/s, B3 launches {n_blocks}, "
             f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        scan7 = dict(wall=wall, decode_s=stages["decode_s"])
         log(f"  stage sums (s, stages overlap): "
             f"{json.dumps(stages)}, spa_s {inst['spa_s']:.3f}; per block: "
             f"decode {stages['decode_s'] / n_blocks:.3f} s, sample gather "
@@ -1655,7 +2124,8 @@ def main() -> int:
         worst_i8 = compare_tables(tab_i8, tab_cpu)
         log(f"first block on the card, int8 route: one B4 launch, the CPU's "
             f"table within {worst_i8:.3e} (limit {RTOL}), {wall_i8:.1f} s")
-        del tab, tab_cpu, tab_i8
+        tab8 = tab
+        del tab_cpu, tab_i8
 
         # 9. the aggregate tests from the fitted model
         agg = aggregate(model, data["y"], work)
@@ -1678,6 +2148,20 @@ def main() -> int:
 
         # 15. fit options at the small fit's size
         fit_options(work, device, gds_s, data_s, small_binary)
+
+        # 16. the PheWAS fit at full width; the small quantitative one
+        phewas_models, _ = phewas_fit(gds_fit, data, fit4, gds_s, data_s,
+                                      "cuda")
+
+        # 17. the PheWAS scan: the lanes and the quantitative model
+        phewas_scan(gds, phewas_models, model_q, scan7, tab8)
+        del tab8
+
+        # 18. GxG
+        gxg_phase(gds_fit, gds, tab7, data, gds_s, data_s)
+
+        # 19. the command line
+        cli_phase(work, gds_s, data_s, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -156,21 +156,48 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
     dev = check_device(device)
     model = NullModel.load(modobj)
     seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
-    if config.spa_mixed:
-        raise NotImplementedError("spa_mixed is deprecated and not ported")
-
-    # sample alignment (R/assoc_single.r:136-142): cols restricts the
-    # genotype columns to the model's samples (GDS order), ii gathers the
-    # model's per-sample arrays to those columns
-    cols, ii = _match_samples(seq.sample_id, model.sample_id)
-    scan_model = model.scan_model(sample_index=ii,
-                                  var_ratio=config.var_ratio, device=dev)
-
-    params = _scan_params(config)
     if verbose:
         print(f"SPA association scan ({model.trait_type} trait) on {dev}: "
               f"{seq.n_variants} variants x {model.n_samples} samples")
+    tab = _scan_models(seq, [model], config, variant_mask, instrument,
+                       dev)[0]
+    if verbose:
+        n = len(tab["id"])
+        print(f"    tested {n} variants (filters dropped "
+              f"{seq.n_variants - n})")
+    if res_savefn:
+        save_assoc(tab, res_savefn, res_compress=res_compress)
+        if verbose:
+            print(f"    saved to {res_savefn}")
+    return tab
 
+
+def _scan_models(seq: SeqData, models: list, config: ScanConfig,
+                 variant_mask, instrument, dev) -> list:
+    """One pass of the genotypes of ``seq`` for the NullModels ``models``
+    (over the same GDS samples): the route, the blocks and the scan core;
+    one table per model."""
+    if config.spa_mixed:
+        raise NotImplementedError("spa_mixed is deprecated and not ported")
+    # sample alignment (R/assoc_single.r:136-142): cols restricts the
+    # genotype columns to the models' samples (GDS order), ii gathers each
+    # model's per-sample arrays to those columns
+    cols0 = None
+    scan_models = []
+    for i, model in enumerate(models):
+        cols, ii = _match_samples(seq.sample_id, model.sample_id)
+        if i == 0:
+            cols0 = cols
+        elif not ((cols is None and cols0 is None) or
+                  (cols is not None and cols0 is not None and
+                   np.array_equal(cols, cols0))):
+            raise ValueError(
+                "assoc_spa_multi: all models must select the same GDS "
+                "sample columns (fit them on one sample universe, or scan "
+                "separately with assoc_spa)")
+        scan_models.append((model.scan_model(
+            sample_index=ii, var_ratio=config.var_ratio, device=dev),
+            model.trait_type == "binary"))
     # the packed route needs hard calls; a model over a subset of the GDS
     # samples keeps it (the blocks are gathered before the pack)
     dense = not (config.use_packed and seq.has_genotype()
@@ -182,13 +209,28 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
     else:
         blocks = seq.iter_code_blocks(config.block_size,
                                       variant_mask=variant_mask)
-    res = _scan_blocks(scan_model, params, blocks, dev,
-                       binary=model.trait_type == "binary",
-                       packed_2bit=config.packed_2bit,
-                       spa_compact=config.spa_compact, cols=cols,
-                       instrument=instrument, dense=dense)
-    idx = res.pop("__idx__")
+    res = _scan_blocks_multi(
+        scan_models, _scan_params(config), blocks, dev,
+        packed_2bit=config.packed_2bit, sparse=_static_sparse(config),
+        spa_compact=config.spa_compact, cols=cols0, instrument=instrument,
+        dense=dense)
+    return [_with_meta(seq, r) for r in res]
 
+
+def _static_sparse(config: ScanConfig) -> bool:
+    """Whether code blocks take the sparse route: ``packed_sparse`` with
+    ``transport_policy="static"`` (the nnz-only rule of
+    :func:`_packed_parts`).  The JAX package's default, link-aware policy
+    engages the sparse route only on a starved host-to-device link, which
+    it measures; that policy is not ported, and without it the scan stays
+    2-bit, as the JAX package's does on a healthy link."""
+    return config.packed_sparse and config.transport_policy == "static"
+
+
+def _with_meta(seq: SeqData, res: dict) -> dict:
+    """A scan core's table, its ``__idx__`` replaced by the variant columns
+    of its rows in front."""
+    idx = res["__idx__"]
     ref, alt = seq.ref_alt
     tab = {
         "id": seq.variant_id[idx],
@@ -198,15 +240,81 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
         "ref": ref[idx],
         "alt": alt[idx],
     }
-    tab.update(res)
-    if verbose:
-        print(f"    tested {len(idx)} variants "
-              f"(filters dropped {seq.n_variants - len(idx)})")
-    if res_savefn:
-        save_assoc(tab, res_savefn, res_compress=res_compress)
-        if verbose:
-            print(f"    saved to {res_savefn}")
+    tab.update((k, v) for k, v in res.items() if k != "__idx__")
     return tab
+
+
+def assoc_spa_multi(gdsfile, modobjs, config: ScanConfig = ScanConfig(),
+                    res_savefn: str = "", verbose: bool = False,
+                    variant_mask: Optional[np.ndarray] = None, mesh=None,
+                    res_compress: str = "LZMA", model_batch: int = 0,
+                    instrument=None, *, device) -> list:
+    """PheWAS-mode scan: score test + SPA for several null models over ONE
+    pass of the genotype stream, on ``device`` (the JAX package's
+    ``assoc_spa_multi``).
+
+    The GDS decode, the sample gather, the pack and the upload of each
+    block are paid once, and phase 1 launches once per model on the
+    resident payload (B3 on the 2-bit route, B4 on the int8 route, B5
+    then B4 on the sparse route), so P phenotypes cost about one pass of
+    the genotypes.  The reference re-reads the GDS per model
+    (R/assoc_single.r:202-222).
+
+    ``modobjs``: NullModels or paths; binary and quantitative models may
+    mix, and every model must select the same GDS sample columns.  The
+    filters come from the shared ``config``, so every table covers the
+    same variants in the same order; each table has the columns of
+    :func:`assoc_spa`'s.  A model over only part of the GDS samples keeps
+    the packed route (each block is gathered to those samples before the
+    pack), where the JAX package takes its dense dosage route; both give
+    the same table.  ``res_savefn``: a pattern with ``{}`` (the model's
+    index).  ``model_batch`` > 0 scans at most that many models per pass
+    of the genotypes.  ``instrument``: as :func:`assoc_spa`'s, for all
+    models together.  Returns one table per model.
+    """
+    dev = check_device(device)
+    if not modobjs:
+        raise ValueError("assoc_spa_multi: empty model list")
+    if mesh is not None:
+        raise NotImplementedError(
+            "a multi-device scan is not ported to the PyTorch port yet "
+            "(ROADMAP Queue A, item 10)")
+    if res_savefn:
+        # fail malformed patterns before the scan runs
+        try:
+            probe = res_savefn.format(0)
+        except Exception as e:
+            raise ValueError(f"res_savefn is not a valid '{{}}' pattern "
+                             f"({e!r}): {res_savefn!r}") from None
+        if probe == res_savefn:
+            raise ValueError("res_savefn must contain '{}' (model index)")
+    if model_batch and len(modobjs) > model_batch:
+        results = []
+        for g0 in range(0, len(modobjs), model_batch):
+            grp = modobjs[g0:g0 + model_batch]
+            tabs = assoc_spa_multi(gdsfile, grp, config, "", verbose,
+                                   variant_mask, None, res_compress,
+                                   instrument=instrument, device=dev)
+            if res_savefn:
+                for i, tab in enumerate(tabs):
+                    save_assoc(tab, res_savefn.format(g0 + i),
+                               res_compress=res_compress)
+            results.extend(tabs)
+        return results
+    models = [NullModel.load(m) for m in modobjs]
+    seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
+    if verbose:
+        kinds = ",".join(m.trait_type for m in models)
+        print(f"SPA association scan x{len(models)} models ({kinds}) on "
+              f"{dev}: {seq.n_variants} variants, one genotype pass")
+    results = _scan_models(seq, models, config, variant_mask, instrument,
+                           dev)
+    if res_savefn:
+        for i, tab in enumerate(results):
+            save_assoc(tab, res_savefn.format(i), res_compress=res_compress)
+    if verbose:
+        print(f"    tested {len(results[0]['id'])} variants per model")
+    return results
 
 
 def assoc_spa_user(geno_fn, n_variants: int, modobj: Union[NullModel, str],
@@ -252,32 +360,50 @@ def assoc_spa_user(geno_fn, n_variants: int, modobj: Union[NullModel, str],
 
 
 def _scan_blocks(scan_model, params, block_iter, device: torch.device,
-                 binary: bool, packed_2bit: bool = True,
-                 spa_compact: bool = True, cols=None,
-                 instrument=None, dense: bool = False) -> dict:
-    """Two-phase scan core for one model: batched score kernel + compact
-    SPA (``_scan_blocks_multi`` of the JAX package, P = 1).  A
+                 binary: bool, **kw) -> dict:
+    """Two-phase scan core for one model: :func:`_scan_blocks_multi` with
+    P = 1."""
+    return _scan_blocks_multi([(scan_model, binary)], params, block_iter,
+                              device, **kw)[0]
+
+
+def _scan_blocks_multi(models, params, block_iter, device: torch.device,
+                       packed_2bit: bool = True, sparse: bool = False,
+                       spa_compact: bool = True, cols=None,
+                       instrument=None, dense: bool = False) -> list:
+    """Two-phase scan core: batched score kernel + compact SPA, for one or
+    several models over ONE pass of the genotype stream (the JAX
+    package's ``_scan_blocks_multi``).
+
+    ``models`` is a list of ``(scan_model, binary)`` pairs over the same
+    samples.  Each block is decoded, gathered, packed and uploaded once,
+    and phase 1 launches once per model on the resident payload; the
+    filters (maf/mac/missing) depend on the genotypes only, so every model
+    tests the same variants, and each model keeps its own SPA set.  A
     quantitative model (``binary=False``) flags nothing for SPA, and its
-    table has no ``p.norm`` or ``converged`` column.
+    table has no ``p.norm`` or ``converged`` column.  Returns one table
+    per model.
 
     Blocks of int8 codes ship 2-bit planar (kernel B3) or, with
-    ``packed_2bit=False``, as the codes themselves (kernel B4); phase 2
-    ships the flagged codes 2-bit either way.  With ``dense``, blocks are
-    f64 dosages (NaN = missing) that ship f64, or f32 where that is
-    lossless, to the dense score test, and phase 2 ships the flagged rows
-    the same way.  ``cols`` (GDS columns of the model's samples, from
-    :func:`_match_samples`) gathers every block to the model's samples
-    before it is packed, so phase 1 and phase 2 both see them.
+    ``packed_2bit=False``, as the codes themselves (kernel B4); with
+    ``sparse``, each block is split by :func:`_packed_parts` and its rare
+    rows ship as the gap-coded stream (kernel B5, then B4).  Phase 2 ships
+    the flagged codes 2-bit either way.  With ``dense``, blocks are f64
+    dosages (NaN = missing) that ship f64, or f32 where that is lossless,
+    to the dense score test, and phase 2 ships the flagged rows the same
+    way.  ``cols`` (GDS columns of the models' samples, from
+    :func:`_match_samples`) gathers every block to those samples before it
+    is packed, so phase 1 and phase 2 both see them.
 
     ``instrument``: optional dict; per-block wall-times land in lists
     under ``decode_s`` (GDS block read, decode thread), ``pack_s`` (2-bit
     pack, pack thread), ``upload_s`` (host-to-device copy, upload thread),
-    ``dispatch_s`` (phase-1 enqueue, main thread), ``drain_s`` (result
-    sync + readback), ``bytes`` (payload sizes), ``gather_s`` (the sample
-    gather inside ``pack_s``, when ``cols`` is given), plus scalars ``spa_s``
-    (phase-2 time, the flushes inside ``drain_s`` included) and ``spa_n``
-    (variants refined).  Stages overlap, so
-    sums exceed wall-clock by design.
+    ``dispatch_s`` (phase-1 enqueue of every model, main thread),
+    ``drain_s`` (result sync + readback), ``bytes`` (payload sizes),
+    ``gather_s`` (the sample gather inside ``pack_s``, when ``cols`` is
+    given), plus scalars ``spa_s`` (phase-2 time, the flushes inside
+    ``drain_s`` included) and ``spa_n`` (variants refined, all models).
+    Stages overlap, so sums exceed wall-clock by design.
     """
     import time as _time
     if instrument is not None:
@@ -286,19 +412,22 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
             instrument.setdefault(k, [])
         instrument.setdefault("spa_s", 0.0)
         instrument.setdefault("spa_n", 0)
+    P = len(models)
     if dense:
-        kern = score_stats_binary if binary else score_stats_quant
-        phase1 = lambda payload: kern(scan_model, params, payload)
+        phase1 = [(lambda payload, sm=sm, kern=score_stats_binary if b
+                   else score_stats_quant: kern(sm, params, payload))
+                  for sm, b in models]
     else:
-        pm = pack_scan_model(scan_model)
-        kern = score_stats_binary_packed if binary \
-            else score_stats_quant_packed
-        phase1 = lambda payload: kern(pm, params, payload)
+        phase1 = [(lambda payload, pm=pack_scan_model(sm),
+                   kern=score_stats_binary_packed if b
+                   else score_stats_quant_packed: kern(pm, params, payload))
+                  for sm, b in models]
     rows_idx = []
-    outs = []
-    spa_G, spa_rows = [], []        # flagged variants for phase 2
+    outs = [[] for _ in range(P)]
+    spa_G = [[] for _ in range(P)]      # flagged variants for phase 2
+    spa_rows = [[] for _ in range(P)]
     spa_bytes = 0                   # host bytes of the flagged codes held
-    spa_out = []                    # (rows, pval, conv, beta, se) per flush
+    spa_out = [[] for _ in range(P)]  # (rows, pval, conv, beta, se)
     row0 = 0
     window = deque()
 
@@ -319,24 +448,29 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
             t0 = _time.perf_counter()
             G = np.asarray(G, np.float64 if dense else np.int8)
             if cols is not None:
-                G = np.take(G, cols, axis=1)         # the model's samples
+                G = np.take(G, cols, axis=1)         # the models' samples
                 if instrument is not None:
                     instrument["gather_s"].append(_time.perf_counter() - t0)
-            # f64/f32 dosages, uint8 [n, ceil(N/4)], or the int8 codes
-            payload = _shrink_f32(G) if dense else \
-                _pack2_block(G) if packed_2bit else G
+            # [(rows, payload)]: f64/f32 dosages, uint8 [n, ceil(N/4)],
+            # the int8 codes, or the sparse split
+            parts = [(np.arange(len(idx)), _shrink_f32(G))] if dense else \
+                _packed_parts(G) if sparse else \
+                [(np.arange(len(idx)),
+                  _pack2_block(G) if packed_2bit else G)]
             if instrument is not None:
                 instrument["pack_s"].append(_time.perf_counter() - t0)
-            yield idx, G, payload
+            yield idx, G, parts
 
     def _uploaded(it):
-        for idx, G, payload in it:
+        for idx, G, parts in it:
             t0 = _time.perf_counter()
-            dev_payload = _to_device(payload, device)
+            dev_parts = [(rows, _to_device(pl, device)) for rows, pl in parts]
             if instrument is not None:
                 instrument["upload_s"].append(_time.perf_counter() - t0)
-                instrument["bytes"].append(payload.nbytes)
-            yield idx, G, dev_payload
+                instrument["bytes"].append(sum(
+                    sum(x.nbytes for x in pl) if isinstance(pl, tuple)
+                    else pl.nbytes for _, pl in parts))
+            yield idx, G, dev_parts
 
     block_iter = _prefetch_blocks(
         _uploaded(_prefetch_blocks(
@@ -349,24 +483,36 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
     def _drain_one():
         nonlocal row0, spa_bytes
         t_dr = _time.perf_counter()
-        idx, G, stacked = window.popleft()
-        res = unstack_stats(stacked.cpu().numpy())   # one readback
-        valid = res.valid
-        rows_idx.append(idx[valid])
-        out = {k: getattr(res, k)[valid]
-               for k in ("af", "mac", "num", "beta", "se", "pval")}
-        out["converged"] = np.isfinite(out["pval"])
-        out["pval_noadj"] = out["pval"].copy()
-        needv = res.need_spa[valid]
-        if needv.any():
-            Gf = G[valid][needv]     # codes ship 2-bit, dosages f64/f32
-            spa_G.append(Gf)
-            spa_rows.append(row0 + np.flatnonzero(needv))
-            spa_bytes += Gf.nbytes
-        outs.append(out)
-        row0 += int(valid.sum())
-        # bound host memory: refine incrementally once the flagged set
-        # grows past the budget
+        idx, G, results = window.popleft()
+        n = len(idx)
+        n_valid = 0
+        for p in range(P):
+            valid = np.empty(n, bool)
+            need = np.empty(n, bool)
+            f = {k: np.empty(n) for k in ("af", "mac", "num", "beta", "se",
+                                          "pval")}
+            for rows, stacked in results[p]:
+                res = unstack_stats(stacked.cpu().numpy())   # one readback
+                valid[rows] = res.valid
+                need[rows] = res.need_spa
+                for k in f:
+                    f[k][rows] = getattr(res, k)
+            if p == 0:
+                rows_idx.append(idx[valid])
+                n_valid = int(valid.sum())
+            out = {k: v[valid] for k, v in f.items()}
+            out["converged"] = np.isfinite(out["pval"])
+            out["pval_noadj"] = out["pval"].copy()
+            needv = need[valid]
+            if needv.any():
+                Gf = G[valid][needv]   # codes ship 2-bit, dosages f64/f32
+                spa_G[p].append(Gf)
+                spa_rows[p].append(row0 + np.flatnonzero(needv))
+                spa_bytes += Gf.nbytes
+            outs[p].append(out)
+        row0 += n_valid
+        # bound host memory: refine incrementally once the flagged sets
+        # grow past the budget
         if spa_bytes >= SPA_FLUSH_BYTES:
             _flush_spa()
         if instrument is not None:
@@ -374,14 +520,18 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
 
     def _flush_spa():
         nonlocal spa_bytes
-        if not spa_G:
-            return
-        t_spa = _time.perf_counter()
-        Gs = np.concatenate(spa_G, axis=0)
-        rows = np.concatenate(spa_rows)
-        spa_G.clear()
-        spa_rows.clear()
         spa_bytes = 0
+        for p in range(P):
+            if spa_G[p]:
+                _flush_model(p)
+
+    def _flush_model(p):
+        t_spa = _time.perf_counter()
+        scan_model = models[p][0]
+        Gs = np.concatenate(spa_G[p], axis=0)
+        rows = np.concatenate(spa_rows[p])
+        spa_G[p].clear()
+        spa_rows[p].clear()
         if instrument is not None:
             instrument["spa_n"] += len(rows)
         # compact batches grouped by nonzero count, so rare variants run
@@ -408,50 +558,53 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
                                     packed_n=N if codes else 0)
             a = torch.stack([res[0], res[1].to(torch.float64), res[2],
                              res[3]]).cpu().numpy()
-            spa_out.append((r, a[0], a[1] != 0, a[2], a[3]))
+            spa_out[p].append((r, a[0], a[1] != 0, a[2], a[3]))
         if instrument is not None:
             instrument["spa_s"] += _time.perf_counter() - t_spa
 
-    for idx, G, payload in block_iter:
+    for idx, G, parts in block_iter:
         t_di = _time.perf_counter()
-        stacked = stack_stats(phase1(payload))
+        results = [[(rows, stack_stats(ph(payload))) for rows, payload in parts]
+                   for ph in phase1]
         if instrument is not None:
             instrument["dispatch_s"].append(_time.perf_counter() - t_di)
-        window.append((idx, G, stacked))
+        window.append((idx, G, results))
         if len(window) >= DEPTH:
             _drain_one()
     while window:
         _drain_one()
-    _flush_spa()  # phase 2 over the remaining flagged subset
+    _flush_spa()  # phase 2 over the remaining flagged subsets
 
-    def col(k):
-        return np.concatenate([o[k] for o in outs]) if outs \
-            else np.empty(0)
+    idx_all = np.concatenate(rows_idx) if rows_idx else np.empty(0, int)
+    tabs = []
+    for p, (_sm, binary) in enumerate(models):
+        def col(k):
+            return np.concatenate([o[k] for o in outs[p]]) if outs[p] \
+                else np.empty(0)
 
-    pval = col("pval")
-    beta = col("beta")
-    se = col("se")
-    converged = col("converged")
-    for r, pv, conv, b, e in spa_out:
-        pval[r] = pv
-        converged[r] = conv
-        beta[r] = b
-        se[r] = e
-
-    tab = {
-        "__idx__": np.concatenate(rows_idx) if rows_idx
-        else np.empty(0, int),
-        "AF.alt": col("af"),
-        "mac": col("mac"),
-        "num": col("num").astype(np.int32),
-        "beta": beta,
-        "SE": se,
-        "pval": pval,
-    }
-    if binary:
-        tab["p.norm"] = col("pval_noadj")
-        tab["converged"] = converged.astype(bool)
-    return tab
+        pval = col("pval")
+        beta = col("beta")
+        se = col("se")
+        converged = col("converged")
+        for r, pv, conv, b, e in spa_out[p]:
+            pval[r] = pv
+            converged[r] = conv
+            beta[r] = b
+            se[r] = e
+        tab = {
+            "__idx__": idx_all,
+            "AF.alt": col("af"),
+            "mac": col("mac"),
+            "num": col("num").astype(np.int32),
+            "beta": beta,
+            "SE": se,
+            "pval": pval,
+        }
+        if binary:
+            tab["p.norm"] = col("pval_noadj")
+            tab["converged"] = converged.astype(bool)
+        tabs.append(tab)
+    return tabs
 
 
 def _to_device(a, device: torch.device):

@@ -37,6 +37,7 @@ from ..ops._cuda import check_device
 from ..ops.grm import build_grm
 from ..ops.packed_grm import build_packed2_grm, build_packed2_grm_streamed
 from ..ops.pcg import pcg_solve
+from ..utils import telemetry
 from ..utils.rrandom import RRandom
 from .glm import GlmFit, ObjNoK, glm_binomial, glm_gaussian, \
     obj_nok_binary, obj_nok_quant, qr_transform, rank_norm
@@ -229,8 +230,13 @@ def _get_trace(grm, st: _CoeffState, tau, cfg: NullModelConfig,
             warnings.warn(
                 f"trace CV {max(cv, cv0):.3g} > {cfg.trace_cv_cutoff:.3g} "
                 f"at the nrun_max={cfg.nrun_max} probe cap; proceeding")
+            telemetry.emit("trace_capped", n_runs=n_runs,
+                           cv=max(cv, cv0), cutoff=cfg.trace_cv_cutoff)
             break
         n_runs += 10
+        # reference: "CV for trace ... escalate nrun" (:661-663)
+        telemetry.emit("trace_escalation", n_runs=n_runs,
+                       cv=max(cv, cv0), cutoff=cfg.trace_cv_cutoff)
     if quant:
         return float(np.mean(buf0)), float(np.mean(buf))
     return float(np.mean(buf))
@@ -394,6 +400,7 @@ def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
         warnings.warn(f"ignoring checkpoint {ckp}: model shape mismatch")
         state = None
     if state is not None and str(state["phase"]) == "done":
+        telemetry.emit("checkpoint_resume", phase="done")
         mu_d = state["mu"]
         return GlmmFit(coefficients=state["alpha"], tau=state["tau"],
                        linear_predictors=state["eta"], fitted_values=mu_d,
@@ -419,6 +426,7 @@ def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
             eta0 = state["eta0"].copy()
         else:
             start_it = it + 1
+        telemetry.emit("checkpoint_resume", it=it)
         st = None
     else:
         st = _get_coeff(grm, y, X, tau, family, alpha0, eta0, offset,
@@ -437,6 +445,9 @@ def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
 
     for it in range(start_it, cfg.maxiter + 1):
         alpha0 = resume_alpha if st is None else st.alpha
+        # the reference prints tau and the coefficients per iteration
+        # (:1027-1031)
+        telemetry.emit("iteration", iter=it, tau=tau, coef=alpha0)
         if verbose:
             print(f"    Iteration {it}: tau = {tau}, coeff = {alpha}")
         tau0 = tau.copy()
@@ -450,6 +461,8 @@ def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
             if np.max(tau) > tol_inv_2:
                 if itry <= 10:
                     tau0[1] *= 0.5
+                    telemetry.emit("tau_retry", iter=it, itry=itry,
+                                   tau0=tau0)
                     continue
                 raise OverflowError(
                     "Large variance estimate observed in the iterations, "
@@ -575,6 +588,7 @@ def calc_var_ratio(grm: _FitGRM, codes, fit0: GlmFit, glmm: GlmmFit,
         snp_pos = int(state["snp_pos"])
         num_tested = int(state["num_tested"])
         num_marker = int(state["num_marker"])
+        telemetry.emit("checkpoint_resume", phase="vr", snp_pos=snp_pos)
     while snp_pos < n_rand:
         # gather the next chunk of markers passing the MAC filter
         pending = []
@@ -594,6 +608,10 @@ def calc_var_ratio(grm: _FitGRM, codes, fit0: GlmFit, glmm: GlmmFit,
                 rows["var2"].append(var2)
                 rows["ratio"].append(var1 / var2)
                 num_tested += 1
+                # the reference prints each marker's ratio (:1335-1339)
+                telemetry.emit("var_ratio_marker", id=i_snp, maf=af,
+                               mac=ac, var1=var1, var2=var2,
+                               ratio=var1 / var2)
                 if verbose:
                     print(f"    marker {i_snp}: maf {af:.4g}, mac {ac:g}, "
                           f"ratio {var1 / var2:.6g}")
@@ -606,6 +624,8 @@ def calc_var_ratio(grm: _FitGRM, codes, fit0: GlmFit, glmm: GlmmFit,
             cv = _calc_cv(rows["ratio"])
             if cv > cfg.ratio_cv_cutoff:
                 num_marker += 10
+                telemetry.emit("ratio_escalation", num_marker=num_marker,
+                               cv=cv, cutoff=cfg.ratio_cv_cutoff)
             else:
                 break
         elif snp_pos >= n_rand:
@@ -663,13 +683,20 @@ def calc_var_ratio_cat(grm: _FitGRM, codes, fit0: GlmFit, glmm: GlmmFit,
                     rows["ratio"].append(var1 / var2)
                     rows["mac_cat"].append(c)
                     cat_ratio.append(var1 / var2)
+                    telemetry.emit("var_ratio_marker", id=i_snp, maf=af,
+                                   mac=ac, var1=var1, var2=var2,
+                                   ratio=var1 / var2, mac_cat=c)
                     if verbose:
                         print(f"    marker {i_snp} (MAC category {c}): maf "
                               f"{af:.4g}, mac {ac:g}, ratio "
                               f"{var1 / var2:.6g}")
             if len(cat_ratio) >= num_marker:
-                if _calc_cv(cat_ratio) > cfg.ratio_cv_cutoff:
+                cv = _calc_cv(cat_ratio)
+                if cv > cfg.ratio_cv_cutoff:
                     num_marker += 10
+                    telemetry.emit("ratio_escalation", mac_cat=c,
+                                   num_marker=num_marker, cv=cv,
+                                   cutoff=cfg.ratio_cv_cutoff)
                 else:
                     break
             elif snp_pos >= n_rand:
@@ -682,6 +709,121 @@ def calc_var_ratio_cat(grm: _FitGRM, codes, fit0: GlmFit, glmm: GlmmFit,
             warnings.warn(
                 f"variance-ratio MAC category ({lo}, {hi}] found only "
                 f"{len(cat_ratio)}/{cfg.num_marker} markers")
+    return rows
+
+
+def calc_var_ratio_multi(grm: _FitGRM, codes, fit0s, glmms, noks,
+                         cfg: NullModelConfig, marker_order: np.ndarray,
+                         binary: bool, verbose=False):
+    """P phenotypes' variance ratios over ONE resident GRM, batched
+    (``fit_null_glmm_multi``; the JAX package's ``calc_var_ratio_multi``).
+
+    Lane for lane the arithmetic of P separate :func:`calc_var_ratio`
+    passes: the marker walk (MAC > 20, the shared random order, +10 while
+    the CV exceeds ratio_cv_cutoff, src/saige_fitnull.cpp:1255-1474) is
+    genotype-driven and shared; each marker chunk uploads its rows once,
+    projects them per lane and solves all running lanes' systems in one
+    per-column PCG, so the GRM streams once per chunk for every lane.  A
+    lane whose ratio CV has converged takes no more chunks.  Requires
+    equal covariate widths; no checkpoint.  Returns P row-dicts shaped
+    like :func:`calc_var_ratio`'s."""
+    from .fit_device import _pcg_multi
+
+    P = len(glmms)
+    if len({nok.X1.shape[1] for nok in noks}) != 1:
+        raise ValueError("calc_var_ratio_multi requires equal covariate "
+                         "widths; run calc_var_ratio per phenotype")
+    op = grm.op
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64),
+                                  device=op.device)
+    family = _Binomial() if binary else _Gaussian()
+    Ws, mus = [], []
+    for f0 in fit0s:
+        mu_eta = family.mu_eta(f0.linear_predictors)
+        Ws.append((mu_eta * mu_eta) / family.variance(f0.fitted_values))
+        mus.append(f0.fitted_values)
+    Wp = t(np.stack(Ws))                                  # [P, N]
+    taup = t(np.stack([g.tau for g in glmms]))            # [P, 2]
+    X1 = t(np.stack([nok.X1 for nok in noks]))            # [P, N, K]
+    XXVX_inv = t(np.stack([nok.XXVX_inv for nok in noks]))
+    XV = t(np.stack([nok.XV for nok in noks]))            # [P, K, N]
+    mu2 = t(np.stack([m * (1 - m) for m in mus]))
+    its = [0]
+
+    def solve(lanes, B):
+        return _pcg_multi(op, Wp[lanes], taup[lanes], B, cfg.tol_pcg,
+                          cfg.maxiter_pcg, its)
+
+    every = torch.arange(P, device=op.device)
+    SiX = solve(every, X1)                                # [P, N, K]
+    xsx_inv = t(np.stack([_mat_inv((X1[p].T @ SiX[p]).cpu().numpy())
+                          for p in range(P)]))
+
+    rows = [dict(id=[], maf=[], mac=[], var1=[], var2=[], ratio=[])
+            for _ in range(P)]
+    num_marker = [cfg.num_marker] * P
+    active = list(range(P))
+    snp_pos = 0
+    num_tested = 0
+    n_rand = len(marker_order)
+    while snp_pos < n_rand and active:
+        want = max(num_marker[p] for p in active)
+        pending = []
+        while num_tested + len(pending) < want and snp_pos < n_rand:
+            i_snp = int(marker_order[snp_pos])  # 1-based
+            snp_pos += 1
+            m = _VarRatio.marker(codes, i_snp)
+            if m is not None and m[1] > 20:     # MAC > 20, as the paper
+                pending.append((i_snp,) + m)
+        if pending:
+            a = torch.as_tensor(active, device=op.device)
+            G0 = t(np.stack([q[3] for q in pending], axis=1))    # [N, B]
+            ac = t([q[2] for q in pending])
+            Gp = G0[None] - torch.einsum(
+                "pnk,pkb->pnb", XXVX_inv[a],
+                torch.einsum("pkn,nb->pkb", XV[a], G0))         # [L, N, B]
+            SiG = solve(a, Gp)
+            adj = torch.einsum(
+                "pnk,pkb->pnb", SiX[a],
+                torch.einsum("pkj,pjb->pkb", xsx_inv[a],
+                             torch.einsum("pnj,pnb->pjb", X1[a], SiG)))
+            var1 = (torch.sum(Gp * SiG, dim=1)
+                    - torch.sum(Gp * adj, dim=1)) / ac
+            if binary:
+                var2 = torch.einsum("pn,pnb->pb", mu2[a], Gp * Gp) / ac
+            else:
+                var2 = torch.sum(Gp * Gp, dim=1) / ac
+            var1, var2 = var1.cpu().numpy(), var2.cpu().numpy()
+            for j, p in enumerate(active):
+                for k, (i_snp, af, acs, _) in enumerate(pending):
+                    v1, v2 = float(var1[j, k]), float(var2[j, k])
+                    rows[p]["id"].append(i_snp)
+                    rows[p]["maf"].append(af)
+                    rows[p]["mac"].append(acs)
+                    rows[p]["var1"].append(v1)
+                    rows[p]["var2"].append(v2)
+                    rows[p]["ratio"].append(v1 / v2)
+                    telemetry.emit("var_ratio_marker", phenotype=p,
+                                   id=i_snp, maf=af, mac=acs, var1=v1,
+                                   var2=v2, ratio=v1 / v2)
+                    if verbose:
+                        print(f"    phenotype {p}, marker {i_snp}: maf "
+                              f"{af:.4g}, mac {acs:g}, ratio {v1 / v2:.6g}")
+            num_tested += len(pending)
+        still = []
+        for p in active:
+            if num_tested >= num_marker[p]:
+                cv = _calc_cv(rows[p]["ratio"])
+                if cv > cfg.ratio_cv_cutoff:
+                    num_marker[p] = num_tested + 10
+                    telemetry.emit("ratio_escalation", phenotype=p,
+                                   num_marker=num_marker[p], cv=cv,
+                                   cutoff=cfg.ratio_cv_cutoff)
+                    still.append(p)
+            else:
+                still.append(p)
+        active = still
+    grm.pcg_iterations += its[0]
     return rows
 
 
@@ -854,12 +996,16 @@ def fit_null_glmm(formula: str, data, gdsfile,
     ``variant.id=`` (R/saige_main.r:314-323).  ``instrument``: optional
     dict that receives the wall seconds of ingest (``ingest_s``), AI-REML
     (``aireml_s``) and the variance ratio (``var_ratio_s``), the outer
-    iterations, and the GRM products and PCG iterations run.
+    iterations, and the GRM products (``matvecs``; ``product_widths``: by
+    the kernels' column count C, for the 2-bit operator) and PCG
+    iterations run.
 
     ``config.checkpoint`` makes the fit resumable (see :func:`fit_ai_pcg`
     and :func:`calc_var_ratio`; the files are removed once the model is
     assembled); ``config.var_ratio_mac_cat`` estimates a variance ratio
-    per MAC category (:func:`calc_var_ratio_cat`).
+    per MAC category (:func:`calc_var_ratio_cat`).  The fit's events
+    (``utils/telemetry.py``: iterations, tau retries, trace escalations,
+    variance-ratio markers) land in ``model.fit_log``.
     """
     cfg = config
     dev = check_device(device)
@@ -877,49 +1023,215 @@ def fit_null_glmm(formula: str, data, gdsfile,
     t1 = time.perf_counter()
 
     y_raw = prep["data"][resp].astype(np.float64)
-    glmm, fit0, nok, binary = _fit_trait(grm, y_raw, prep["X_new"], cfg,
-                                         verbose)
-    t2 = time.perf_counter()
-
-    vr_fn = calc_var_ratio_cat if cfg.var_ratio_mac_cat else calc_var_ratio
-    vr = vr_fn(grm, prep["codes"], fit0, glmm, nok, cfg,
-               prep["marker_order"], binary=binary, verbose=verbose)
+    with telemetry.collect(verbose=verbose) as tele:
+        glmm, fit0, nok, binary = _fit_trait(grm, y_raw, prep["X_new"], cfg,
+                                             verbose)
+        t2 = time.perf_counter()
+        vr_fn = calc_var_ratio_cat if cfg.var_ratio_mac_cat \
+            else calc_var_ratio
+        vr = vr_fn(grm, prep["codes"], fit0, glmm, nok, cfg,
+                   prep["marker_order"], binary=binary, verbose=verbose)
     t3 = time.perf_counter()
     if instrument is not None:
         instrument.update(ingest_s=t1 - t0, aireml_s=t2 - t1,
                           var_ratio_s=t3 - t2,
                           outer_iterations=glmm.iterations,
                           matvecs=grm.op.matvecs,
+                          product_widths=dict(getattr(grm.op, "widths", {})),
                           pcg_iterations=grm.pcg_iterations)
 
     model = _assemble_model(cfg, glmm, vr, nok, prep["X_qrr"],
                             prep["X_names"], prep["x_transform"],
                             prep["variant_id"], prep["sample_id"],
                             len(y_raw))
+    model.fit_log = tele.events
     clear_checkpoint(cfg)   # fit + variance ratio complete: drop the state
     if model_savefn:
         model.save(model_savefn)
     return model
 
 
+def fit_null_glmm_multi(formulas, data, gdsfile,
+                        config: NullModelConfig = NullModelConfig(),
+                        model_savefn: str = "", verbose: bool = False,
+                        variant_id=None, probe_pool: int = 0, mesh=None,
+                        instrument=None, *, device) -> list:
+    """PheWAS-mode null fit: P phenotypes over ONE resident GRM on
+    ``device`` (the JAX package's ``fit_null_glmm_multi``).
+
+    ``formulas``: a list of formulas (all binary or all quantitative, per
+    ``config.trait_type``) with the same covariate terms, e.g.
+    ``["y1 ~ x1 + x2", "y2 ~ x1 + x2"]``.  The GDS is ingested once and
+    the GRM stays resident; every AI-REML stage solves all phenotypes'
+    systems in one batched PCG (``models/fit_device.py``), and the
+    variance ratios stack every phenotype's marker solves into shared
+    PCG calls (:func:`calc_var_ratio_multi`; with ``var_ratio_mac_cat``
+    :func:`calc_var_ratio_cat` runs once per phenotype).  The reference
+    fits one phenotype per call and re-reads its GRM each time
+    (R/saige_main.r:223).
+
+    Differences from P separate :func:`fit_null_glmm` calls, as in the
+    JAX package: the samples are the complete cases of ALL responses; the
+    AI-REML engine is the batched device fitter, whose probes come from
+    one Rademacher pool of ``probe_pool`` columns (default ``max(2 nrun,
+    nrun + 30)``, R's stream) instead of a stream restarted per trace, so
+    it agrees with the host fit within the 2% stopping rule; no
+    checkpoint.  ``model_savefn``: a pattern with ``{}`` (the phenotype's
+    index).  ``instrument``: as :func:`fit_null_glmm`'s, with
+    ``outer_iterations`` per phenotype and ``lanes`` (P).  Each model's
+    ``fit_log`` is a list of its own: the variance-ratio events of its
+    phenotype (the batched fitter emits no iteration events).  Returns
+    one :class:`NullModel` per formula."""
+    from .fit_device import (fit_glmm_binary_device_multi,
+                             fit_glmm_quant_device_multi)
+
+    cfg = config
+    dev = check_device(device)
+    if cfg.trait_type not in ("binary", "quantitative"):
+        raise ValueError(f"Invalid trait type {cfg.trait_type!r}")
+    if mesh is not None:
+        raise _not_ported("A multi-device fit", "item 10")
+    binary = cfg.trait_type == "binary"
+    if isinstance(formulas, str):
+        formulas = [formulas]
+    if model_savefn:
+        try:
+            probe = model_savefn.format(0)
+        except Exception as e:
+            raise ValueError(f"model_savefn is not a valid '{{}}' pattern "
+                             f"({e!r}): {model_savefn!r}") from None
+        if probe == model_savefn:
+            raise ValueError("model_savefn must contain '{}' "
+                             "(phenotype index)")
+    parsed = [_parse_formula(f) for f in formulas]
+    resps = [r for r, _c in parsed]
+    if len(set(resps)) != len(resps):
+        raise ValueError(f"duplicate response columns: {resps}")
+    covs0 = parsed[0][1]
+    for f, (_r, covs) in zip(formulas[1:], parsed[1:]):
+        if covs != covs0:
+            raise ValueError(
+                f"all formulas must share the same covariate terms for a "
+                f"batched fit; {formulas[0]!r} vs {f!r} differ")
+
+    seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
+    t0 = time.perf_counter()
+    prep = _prepare_fit(seq, data, cfg, resps, covs0, variant_id, verbose,
+                        " | ".join(formulas), dev)
+    grm = _FitGRM(prep["grm"])
+    t1 = time.perf_counter()
+    X_new = prep["X_new"]
+    P = len(resps)
+    starts = [_trait_start(prep["data"][r].astype(np.float64), X_new, cfg)
+              for r in resps]
+    fit0s = [f0 for f0, _n, _t in starts]
+    noks = [nok for _f, nok, _t in starts]
+    ys = [f0.y.astype(np.float64) for f0 in fit0s]
+    # the shared Rademacher probe pool, R's stream (the first nrun probes
+    # are the host fit's); the extra columns feed the CV escalation
+    n = X_new.shape[0]
+    R = probe_pool or max(2 * cfg.nrun, cfg.nrun + 30)
+    rng = RRandom(cfg.seed)
+    U = np.stack([rng.rademacher(n).astype(np.float64) for _ in range(R)],
+                 axis=1)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    with telemetry.collect(verbose=verbose) as tele:
+        if binary:
+            fit = fit_glmm_binary_device_multi(
+                grm.op, t(np.stack(ys)), t(X_new),
+                t(np.stack([tau for _f, _n, tau in starts])),
+                t(np.stack([f0.linear_predictors for f0 in fit0s])), t(U),
+                cfg.tol, cfg.tol_pcg, maxiter=cfg.maxiter,
+                maxiter_pcg=cfg.maxiter_pcg, nrun=cfg.nrun,
+                trace_cv_cutoff=cfg.trace_cv_cutoff)
+        else:
+            fit = fit_glmm_quant_device_multi(
+                grm.op, t(np.stack(ys)), t(X_new),
+                t(np.stack([tau for _f, _n, tau in starts])), t(U),
+                cfg.tol, cfg.tol_pcg, maxiter=cfg.maxiter,
+                maxiter_pcg=cfg.maxiter_pcg, nrun=cfg.nrun,
+                trace_cv_cutoff=cfg.trace_cv_cutoff)
+        grm.pcg_iterations += fit.pcg_iterations
+        h = lambda a: a.cpu().numpy()
+        capped = h(fit.trace_capped)
+        if capped.any():
+            bad = [r for r, c in zip(resps, capped) if c]
+            warnings.warn(
+                f"Hutchinson trace probe pool ({R}) exhausted with CV above "
+                f"{cfg.trace_cv_cutoff} for {bad}; pass a larger "
+                f"probe_pool=", RuntimeWarning)
+        mu = h(fit.mu)
+        glmms = [GlmmFit(
+            coefficients=h(fit.coefficients[p]), tau=h(fit.tau[p]),
+            linear_predictors=h(fit.eta[p]), fitted_values=mu[p],
+            residuals=ys[p] - mu[p], cov=h(fit.cov[p]),
+            converged=bool(fit.converged[p]),
+            iterations=int(fit.iterations[p])) for p in range(P)]
+        t2 = time.perf_counter()
+        if cfg.var_ratio_mac_cat:
+            vrs = []
+            for p in range(P):
+                with telemetry.collect(verbose=verbose) as lane:
+                    vrs.append(calc_var_ratio_cat(
+                        grm, prep["codes"], fit0s[p], glmms[p], noks[p], cfg,
+                        prep["marker_order"], binary=binary,
+                        verbose=verbose))
+                tele.events += [dict(e, phenotype=p) for e in lane.events]
+        else:
+            vrs = calc_var_ratio_multi(grm, prep["codes"], fit0s, glmms,
+                                       noks, cfg, prep["marker_order"],
+                                       binary=binary, verbose=verbose)
+    t3 = time.perf_counter()
+    if instrument is not None:
+        instrument.update(ingest_s=t1 - t0, aireml_s=t2 - t1,
+                          var_ratio_s=t3 - t2,
+                          outer_iterations=[g.iterations for g in glmms],
+                          matvecs=grm.op.matvecs,
+                          product_widths=dict(getattr(grm.op, "widths", {})),
+                          pcg_iterations=grm.pcg_iterations, lanes=P)
+    models = []
+    for p in range(P):
+        model = _assemble_model(cfg, glmms[p], vrs[p], noks[p],
+                                prep["X_qrr"], prep["X_names"],
+                                prep["x_transform"], prep["variant_id"],
+                                prep["sample_id"], len(ys[p]))
+        model.fit_log = [e for e in tele.events if e.get("phenotype") == p]
+        if model_savefn:
+            model.save(model_savefn.format(p))
+        models.append(model)
+    return models
+
+
 def _fit_trait(grm: _FitGRM, y_raw: np.ndarray, X_new: np.ndarray,
                cfg: NullModelConfig, verbose):
     """The trait's GLM start, SA_NULL projection and AI-REML fit ->
     (glmm, fit0, nok, binary)."""
+    fit0, nok, tau = _trait_start(y_raw, X_new, cfg)
+    binary = cfg.trait_type == "binary"
+    glmm = fit_ai_pcg(grm, fit0, X_new if binary else nok.X1, tau, cfg,
+                      binary=binary, verbose=verbose)
+    return glmm, fit0, nok, binary
+
+
+def _binary_tau_init(cfg: NullModelConfig) -> np.ndarray:
+    """(1, 0.5), or (1, tau_init[1]) when given (R/saige_main.r:489-495)."""
+    tau = np.array([1.0, 0.5])
+    ti = np.nan_to_num(np.asarray(cfg.tau_init, float))
+    ti[ti < 0] = 0
+    if ti[1] > 0:
+        tau[1] = ti[1]
+    return tau
+
+
+def _trait_start(y_raw: np.ndarray, X_new: np.ndarray,
+                 cfg: NullModelConfig):
+    """The trait's GLM start, SA_NULL projection and initial tau ->
+    (fit0, nok, tau)."""
     if cfg.trait_type == "binary":
         if set(np.unique(y_raw)) - {0.0, 1.0}:
             raise ValueError("binary trait must be coded 0/1")
-        fit0 = glm_binomial(X_new, y_raw)
-        nok = obj_nok_binary(X_new, y_raw)
-        # initial tau: (1, 0.5) unless tau_init given (R/saige_main.r:489-495)
-        tau = np.array([1.0, 0.5])
-        ti = np.nan_to_num(np.asarray(cfg.tau_init, float))
-        ti[ti < 0] = 0
-        if ti[1] > 0:
-            tau[1] = ti[1]
-        glmm = fit_ai_pcg(grm, fit0, X_new, tau, cfg, binary=True,
-                          verbose=verbose)
-        return glmm, fit0, nok, True
+        return glm_binomial(X_new, y_raw), obj_nok_binary(X_new, y_raw), \
+            _binary_tau_init(cfg)
     yq = y_raw.copy()
     if cfg.inv_norm:
         # rank-based inverse normal of the covariate residuals, rescaled
@@ -934,22 +1246,23 @@ def _fit_trait(grm: _FitGRM, y_raw: np.ndarray, X_new: np.ndarray,
     ti = np.nan_to_num(np.asarray(cfg.tau_init, float))
     ti[ti < 0] = 0
     tau = ti if ti.sum() > 0 else np.array([0.5, 0.5])
-    tau = np.var(fit0.y, ddof=1) * tau / tau.sum()
-    glmm = fit_ai_pcg(grm, fit0, nok.X1, tau, cfg, binary=False,
-                      verbose=verbose)
-    return glmm, fit0, nok, False
+    return fit0, nok, np.var(fit0.y, ddof=1) * tau / tau.sum()
 
 
-def _prepare_fit(seq: SeqData, data, cfg, resp: str, covs, variant_id,
-                 verbose, formula_str, dev):
+def _prepare_fit(seq: SeqData, data, cfg, resp, covs, variant_id,
+                 verbose, formula_str, dev, harvest: bool = True):
     """The fit preamble: sample alignment, variant filtering, GRM SNP
     down-sampling, covariate design + QR transform, and the GRM build on
     ``dev`` -- everything before the response enters (reference
-    R/saige_main.r:303-420)."""
+    R/saige_main.r:303-420).  ``resp`` is one response column or a list
+    of them (``fit_null_glmm_multi``: the samples are then the complete
+    cases of ALL of them).  ``harvest=False`` skips the variance-ratio
+    marker rows of a streamed build (GxG needs none)."""
     # sample alignment (R/saige_main.r:303-313): complete cases of the
     # used columns, in the GDS file's sample order
     term_vars = _term_vars(covs)
-    used = list(dict.fromkeys([cfg.sample_col, resp] + term_vars))
+    resps = [resp] if isinstance(resp, str) else list(resp)
+    used = list(dict.fromkeys([cfg.sample_col] + resps + term_vars))
     cols = {c: np.asarray(data[c]) for c in used}
     na = np.zeros(len(cols[cfg.sample_col]), bool)
     for v in cols.values():
@@ -1062,7 +1375,8 @@ def _prepare_fit(seq: SeqData, data, cfg, resp: str, covs, variant_id,
     if streamed:
         # pass 2: streamed build + harvest the rows the variance-ratio
         # estimator will touch first
-        cache_k = min(n_var, max(600, cfg.num_marker * 20))
+        cache_k = min(n_var, max(600, cfg.num_marker * 20)) if harvest \
+            else 0
         want_rows = set(int(i) - 1 for i in marker_order[:cache_k])
         local_to_global = np.flatnonzero(vmask)[selmask]
 
@@ -1093,8 +1407,9 @@ def _prepare_fit(seq: SeqData, data, cfg, resp: str, covs, variant_id,
         grm = build_grm(codes, device=dev)
 
     return dict(data=cols, sample_id=sample_id, grm=grm, codes=codes,
-                marker_order=marker_order, variant_id=variant_id, X_new=X_new,
-                X_qrr=X_qrr, X_names=X_names, x_transform=x_transform)
+                marker_order=marker_order, variant_id=variant_id, X=X,
+                X_new=X_new, X_qrr=X_qrr, X_names=X_names,
+                x_transform=x_transform)
 
 
 def _assemble_model(cfg, glmm, vr, nok, X_qrr, X_names, x_transform,

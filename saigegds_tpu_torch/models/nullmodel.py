@@ -48,6 +48,7 @@ class NullModel:
     var_ratio: dict = field(default_factory=dict)
     sample_id: np.ndarray = None
     variant_id: np.ndarray = None
+    fit_log: list = None              # the fit's telemetry events
 
     @property
     def n_samples(self) -> int:
@@ -72,7 +73,7 @@ class NullModel:
     def from_arrays(cls, d: dict) -> "NullModel":
         """Build from a mapping of the JAX ``NullModel``'s fields as numpy
         arrays (e.g. ``vars(jax_model)``); fields this class does not hold
-        (the fit's telemetry) are ignored."""
+        are ignored."""
         names = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in d.items() if k in names}
         kw["trait_type"] = str(kw["trait_type"])
@@ -298,3 +299,13 @@ class NullModel:
             vr_edges=vr_edges,
             vr_ratios=vr_ratios,
         )
+
+
+def fit_null_glmm(*args, **kwargs):
+    from .fitnull import fit_null_glmm as _fit
+    return _fit(*args, **kwargs)
+
+
+def fit_null_glmm_multi(*args, **kwargs):
+    from .fitnull import fit_null_glmm_multi as _fit
+    return _fit(*args, **kwargs)

@@ -152,7 +152,9 @@ class Packed2GRM:
     ``packed`` uint8 [M, N4] (missing zeroed), ``af``/``inv`` f64 [M],
     ``diag`` f64 [N] = diag(GRM), and the missing entries as two int64
     index lists ``miss_var``/``miss_samp`` of equal length, all on one
-    device.  ``matvecs`` counts the products taken."""
+    device.  ``matvecs`` counts the products taken, and ``widths`` the
+    products by the column count C that kernels B1 and B2 ran at
+    (:func:`kernel_cols`)."""
 
     def __init__(self, packed, af, inv, diag, miss_var, miss_samp,
                  n_samples: int):
@@ -166,10 +168,13 @@ class Packed2GRM:
         self.n_samples = int(n_samples)
         self.device = packed.device
         self.matvecs = 0
+        self.widths = {}
 
     def matvec(self, b: torch.Tensor) -> torch.Tensor:
         """GRM @ b for b [N] or [N, R] f64 on this operator's device."""
         self.matvecs += 1
+        C = kernel_cols(1 if b.dim() == 1 else b.shape[1])
+        self.widths[C] = self.widths.get(C, 0) + 1
         return packed2_grm_matvec(self.packed, self.af, self.inv,
                                   self.miss_var, self.miss_samp, b)
 
@@ -252,6 +257,12 @@ def build_packed2_grm_streamed(block_iter, n_samples: int, n_variants: int,
                       n_samples)
 
 
+def kernel_cols(R: int) -> int:
+    """Columns C of kernels B1 and B2 in a product of R right-hand sides:
+    their N_SLICES slices each, padded to a multiple of 128."""
+    return -(-R * N_SLICES // 128) * 128
+
+
 def _slice_weights(scale: torch.Tensor, S: int) -> torch.Tensor:
     """[1, R, S] weights that recombine S slices: scale / 64 / 128^s."""
     return scale[None, :, None] / 64.0 * (1.0 / 128.0) ** torch.arange(
@@ -285,7 +296,7 @@ def packed2_grm_matvec(packed, af, inv, miss_var, miss_samp,
     N, R = B.shape
     S = N_SLICES
     RS = R * S
-    Cpad = -(-RS // 128) * 128
+    Cpad = kernel_cols(R)
 
     # pass 1: cv = Cm @ b (padded samples meet zero slice rows)
     Bp = torch.zeros(Npad, R, dtype=torch.float64, device=B.device)

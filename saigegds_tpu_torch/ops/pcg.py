@@ -6,7 +6,11 @@ src/saige_fitnull.cpp:581-614): Jacobi preconditioner with a 1e-4 floor on
 diag(Sigma) (:553), stop when sum(r^2) <= tolPCG or maxiterPCG.  R
 right-hand sides run as one batch with per-column freezing, so each column
 performs exactly the iterations its sequential solve would -- the
-arithmetic of the JAX package's ``_pcg_body``.
+arithmetic of the JAX package's ``_pcg_body``.  The weights ``w`` and the
+variance components ``tau`` may also be given per column (``[N, R]`` and
+``[2, R]``), so systems of different models (the lanes of a PheWAS fit,
+the pairs of a GxG batch) share one solve and one GRM product per
+iteration, each column with the arithmetic of its own solve.
 
 The loop is driven from the host, like the JAX package's ``pcg_host``,
 with all state on the operator's device; it reads ``any(active)`` after
@@ -25,14 +29,20 @@ def pcg_solve(op, w: torch.Tensor, tau, B: torch.Tensor, tol: float,
 
     ``op`` has ``.matvec([N, R])`` and ``.diag`` [N] (a
     :class:`~.packed_grm.Packed2GRM` or :class:`~.grm.GRMOperator`); ``w``
-    [N] working weights, ``tau`` (tau0, tau1), ``B`` [N] or [N, R], all f64
-    on the operator's device.  Returns ``(X, iters [R], converged [R])``
+    working weights, [N] shared or [N, R] per column; ``tau`` (tau0, tau1)
+    shared, or a [2, R] tensor per column; ``B`` [N] or [N, R]; all f64 on
+    the operator's device.  Returns ``(X, iters [R], converged [R])``
     (``X`` [N] and scalars for a 1-D ``B``)."""
     squeeze = B.dim() == 1
     if squeeze:
         B = B[:, None]
-    tau0, tau1 = float(tau[0]), float(tau[1])
-    inv_w = (1.0 / w)[:, None]
+    if isinstance(tau, torch.Tensor) and tau.dim() == 2:
+        tau0, tau1 = tau[0][None, :], tau[1][None, :]      # [1, R]
+    else:
+        tau0, tau1 = float(tau[0]), float(tau[1])
+    inv_w = 1.0 / w
+    if inv_w.dim() == 1:
+        inv_w = inv_w[:, None]
 
     d = torch.clamp_min(tau0 * inv_w + tau1 * op.diag[:, None], 1e-4)
     minv = (1.0 / d).expand(B.shape)

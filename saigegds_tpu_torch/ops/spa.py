@@ -125,7 +125,8 @@ def _saddle_prob(t, g, mu, mask, NAmu, NAsigma, q):
     return torch.where(ok, torch.abs(pval), 0.0)
 
 
-def saddle_prob_batch(q, m1, var2, g, mu, mask, cutoff=2.0, g_bounds=None):
+def saddle_prob_batch(q, m1, var2, g, mu, mask, cutoff=2.0, g_bounds=None,
+                      zero_noadj=True):
     """Batched Saddle_Prob_Fast / Saddle_Prob.
 
     Parameters
@@ -139,6 +140,9 @@ def saddle_prob_batch(q, m1, var2, g, mu, mask, cutoff=2.0, g_bounds=None):
     cutoff : initial std-dev cutoff (the scan uses 2.0)
     g_bounds : (g_pos, g_neg) range bounds over the FULL adjusted vector,
         for callers that pass a compacted ``g``.
+    zero_noadj : replace an SPA p-value of 0 by pval_noadj (the
+        single-variant caller's rule); GxG passes False (see
+        :func:`_resolve_cutoff`).
 
     Returns (pval, converged) each [B].
     """
@@ -167,10 +171,12 @@ def saddle_prob_batch(q, m1, var2, g, mu, mask, cutoff=2.0, g_bounds=None):
     p2 = _saddle_prob(root2, g, mu, mask, NAmu, NAsigma, qinv)
     spa = p1 + p2
 
-    return _resolve_cutoff(pval_noadj, spa, both_conv, s, var2, cutoff)
+    return _resolve_cutoff(pval_noadj, spa, both_conv, s, var2, cutoff,
+                           zero_noadj)
 
 
-def _resolve_cutoff(pval_noadj, spa, both_conv, s, var2, cutoff):
+def _resolve_cutoff(pval_noadj, spa, both_conv, s, var2, cutoff,
+                    zero_noadj=True):
     """Closed form of the reference's cutoff-doubling loop.
 
     The loop (src/SPATest.cpp:286-290) only toggles between the SPA value
@@ -187,10 +193,11 @@ def _resolve_cutoff(pval_noadj, spa, both_conv, s, var2, cutoff):
     stat = torch.abs(s) / torch.sqrt(var2)
     below = stat < cutoff
     ratio_big = (spa != 0) & (pval_noadj / spa > 1000.0)
-    # the pval==0 -> pval_noadj substitution of the single-variant caller
-    # (src/saige_main.cpp:390-391); the JAX package's GxG test keeps
-    # Saddle_Prob's own pval=0 instead (zero_noadj=False there)
-    spa_zero = (spa == 0) & (pval_noadj > 0)
+    # the pval==0 -> pval_noadj substitution belongs to the single-variant
+    # caller (src/saige_main.cpp:390-391); Saddle_Prob itself breaks out of
+    # the doubling loop with pval=0 and converged still true, which is what
+    # the GxG caller reports (src/saige_fitnull.cpp:1540): zero_noadj=False
+    spa_zero = (spa == 0) & (pval_noadj > 0) & zero_noadj
 
     pval = torch.where(
         below | ~both_conv, pval_noadj,

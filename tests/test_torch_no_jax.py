@@ -7,7 +7,8 @@
   ``$dosage_alt`` node, runs ``assoc_spa_user``, the burden test and
   ACAT-O over DS units, fits with ``checkpoint=`` and
   ``var_ratio_mac_cat=``, and reads and writes ``.rds``/``.rda`` models
-  and tables; and it loads no
+  and tables; it runs the PheWAS fit and scan, GxG and the command line's
+  ``fit`` and ``scan`` (``python -m saigegds_tpu_torch``); and it loads no
   ``saigegds_tpu`` module on the way (``saigegds_tpu/__init__.py`` imports
   jax, so the port copies the framework-free host layers instead).
 * Those copies stay byte-identical to their originals, so a fix to one is
@@ -24,8 +25,8 @@ import pytest
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 PORT = os.path.join(ROOT, "saigegds_tpu_torch")
 VERBATIM = ["config.py", "io/gds.py", "io/seqarray.py", "io/gds_write.py",
-            "io/rds.py", "io/rds_write.py", "models/glm.py",
-            "utils/rrandom.py", "native/fastio.cpp"]
+            "io/rds.py", "io/rds_write.py", "io/vcf.py", "models/glm.py",
+            "utils/rrandom.py", "utils/telemetry.py", "native/fastio.cpp"]
 
 _SCAN_WITHOUT_JAX = r"""
 import sys
@@ -230,6 +231,62 @@ print("OK")
 """
 
 
+_PHEWAS_GXG_CLI_WITHOUT_JAX_OR_PANDAS = r"""
+import os, subprocess, sys
+sys.modules["jax"] = None          # any import of jax or pandas now raises
+sys.modules["pandas"] = None
+import numpy as np
+import saigegds_tpu_torch as sg
+from saigegds_tpu_torch.io.gds_write import write_seqarray_gds
+
+rng = np.random.default_rng(5)
+N, M = 240, 120
+codes = rng.binomial(2, rng.uniform(0.1, 0.5, (M, 1)), size=(M, N))
+codes = codes.astype(np.int8)
+codes[rng.random((M, N)) < 0.005] = 3
+path = sys.argv[1]
+write_seqarray_gds(path, codes, position=np.arange(1, M + 1) * 10)
+g = np.where(codes == 3, 0, codes).T @ rng.normal(size=M) * 0.15
+data = {"sample.id": np.arange(1, N + 1), "x1": rng.normal(size=N)}
+for i in range(2):
+    data[f"y{i}"] = (rng.random(N) < 1 / (1 + np.exp(1 + i - g))) * 1.0
+models = sg.fit_null_glmm_multi(["y0 ~ x1", "y1 ~ x1"], data, path,
+                                device="cpu")
+assert all(np.isfinite(m.tau).all() for m in models)
+tabs = sg.assoc_spa_multi(path, models, sg.ScanConfig(block_size=32),
+                          device="cpu")
+assert len(tabs) == 2 and np.array_equal(tabs[0]["id"], tabs[1]["id"])
+gx = sg.gxg_spa("y0 ~ x1", data, path, [(3, 4), (10, 20)],
+                use_approx_tau=True, pair_batch=2, device="cpu")
+assert ((gx["pval"] >= 0) & (gx["pval"] <= 1)).all()
+bad = [m for m in sys.modules
+       if m == "saigegds_tpu" or m.startswith("saigegds_tpu.")
+       or (m.startswith(("jax", "pandas")) and sys.modules[m] is not None)]
+assert not bad, bad
+pheno = os.path.join(os.path.dirname(path), "pheno.tsv")
+with open(pheno, "w") as f:
+    f.write("sample.id\tx1\ty0\ty1\n")
+    for row in zip(*(data[c] for c in ("sample.id", "x1", "y0", "y1"))):
+        f.write("\t".join(repr(float(v)) if i else str(v)
+                           for i, v in enumerate(row)) + "\n")
+# the command line in a process of its own that cannot import jax or
+# pandas either
+guard = ("import sys; sys.modules['jax'] = sys.modules['pandas'] = None; "
+         "import runpy; sys.argv[0] = 'saigegds_tpu_torch'; "
+         "runpy.run_module('saigegds_tpu_torch', run_name='__main__')")
+out = os.path.join(os.path.dirname(path), "m_{}.npz")
+for args in (["fit", "--formula", "y ~ x1", "--pheno-cols", "y0,y1",
+              "--pheno", pheno, "--gds", path, "--out", out],
+             ["scan", "--gds", path, "--model", out.format(0), "--model",
+              out.format(1), "--out", out.replace(".npz", ".tsv")]):
+    subprocess.run([sys.executable, "-c", guard, *args, "--device", "cpu"],
+                   check=True, capture_output=True)
+back = sg.load_pval(out.replace(".npz", ".tsv").format(1))
+assert np.array_equal(back["pval"], tabs[1]["pval"])
+print("OK")
+"""
+
+
 def _run(code: str, tmp_path):
     # one intra-op thread: the scripts' tensors are small, and parallel
     # test workers share the cores
@@ -274,6 +331,10 @@ def test_quantitative_runs_without_jax_or_pandas(tmp_path):
 
 def test_dosages_and_r_files_without_jax_or_pandas(tmp_path):
     _run(_DOSAGES_AND_R_FILES_WITHOUT_JAX_OR_PANDAS, tmp_path)
+
+
+def test_phewas_gxg_cli_without_jax_or_pandas(tmp_path):
+    _run(_PHEWAS_GXG_CLI_WITHOUT_JAX_OR_PANDAS, tmp_path)
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

@@ -106,3 +106,32 @@ def test_pcg_matches_jax_dense(problem):
     res = _solve_both(jbuild_dense(codes), build_grm(codes, device="cpu"),
                       w, np.array([1.0, 0.5]), B, 500)
     _check(*res)
+
+
+def test_pcg_per_column_weights_and_tau(problem):
+    """Per-column weights w [N, R] and tau [2, R] (the systems of several
+    models in one solve, as the batched fits and GxG pass them) against
+    the JAX solver's per-column form; each column also equals its own
+    one-column solve, with the same iterations."""
+    import jax.numpy as jnp
+    from saigegds_tpu.ops.pcg import pcg_solve_op
+    _, jg, tg, w, B = problem
+    rng = np.random.default_rng(22)
+    R = B.shape[1]
+    mus = rng.uniform(0.05, 0.5, (len(w), R))
+    W = mus * (1 - mus)
+    tau = np.array([[1.0, 1.0, 0.3, 1.0, 0.7], [0.5, 0.0, 2.0, 0.1, 1.5]])
+    jx, jit, jconv = pcg_solve_op(jg, jnp.asarray(W), jnp.asarray(tau),
+                                  jnp.asarray(B), TOL, 500)
+    tx, tit, tconv = pcg_solve(tg, torch.from_numpy(W),
+                               torch.from_numpy(tau), torch.from_numpy(B),
+                               TOL, 500)
+    assert len(set(tit.tolist())) > 1
+    _check(np.asarray(jx), np.asarray(jit), np.asarray(jconv), tx.numpy(),
+           tit.numpy(), tconv.numpy())
+    for r in range(R):
+        x1, it1, _ = pcg_solve(tg, torch.from_numpy(W[:, r]), tau[:, r],
+                               torch.from_numpy(B[:, r]), TOL, 500)
+        assert int(it1) == int(tit[r])
+        np.testing.assert_allclose(tx[:, r].numpy(), x1.numpy(), rtol=0,
+                                   atol=RTOL * float(x1.abs().max()))
