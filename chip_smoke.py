@@ -45,7 +45,11 @@ and prints no result line):
    per GRM product, and the checkpoint files must be gone once the model
    is assembled; then one GRM product at R = 30
    columns over a random store of the fit's size and missing rate, timed
-   by CUDA events and profiled by kernel (``torch.profiler``);
+   by CUDA events and profiled by kernel (``torch.profiler``), and its
+   missing-pair corrections alone in five forms (``index_add_`` with and
+   without ``torch.use_deterministic_algorithms``, ``segment_reduce``, a
+   CSR product and the port's ``embedding_bag`` sums), each timed and run
+   twice: the port's must agree with itself bit for bit;
 5. the fit held against the CPU: one GRM product over the first 2,048 GRM
    variants at full N (31 columns) on the card and on the CPU, within
    1e-12 relative; a small fit (2,000 samples x 1,000 variants) on both,
@@ -127,8 +131,9 @@ and prints no result line):
    the card and on the CPU within 1e-8, the same markers in each
    category; then the small binary fit of phase 5 with ``checkpoint=``,
    killed in outer iteration 2 (a wrapped ``_fit_tau_binary`` raises) and
-   resumed on the card: within 1e-8 of the uninterrupted card fit, with
-   equal outer iterations and the checkpoint files gone;
+   resumed on the card: equal to the uninterrupted card fit bit for bit
+   (tau, coefficients, fitted values, variance ratios, markers, outer
+   iterations), the checkpoint files gone;
 16. the PheWAS fit at full width: ``fit_null_glmm_multi`` over phase 4's
    GDS with P = 4 binary phenotypes (phase 4's ``y`` and three more from
    the same genetic values at case fractions of about 10%, 20% and 50%),
@@ -161,7 +166,18 @@ and prints no result line):
    refits, serial
    and ``pair_batch=4``, at the small fit's size on the card and on the
    CPU: within 1e-8, the same PCG iterations and products;
-19. the command line: ``python -m saigegds_tpu_torch`` with ``--device
+19. the mesh: ``make_mesh(devices=["cuda:0"] * 2)``, two shards on the
+   one card (this proves the sharded paths and measures what sharding
+   costs, not a speed-up): ``fit_null_glmm(..., mesh=)`` over phase 4's
+   GDS and data (the streamed ingest builds each shard's store as the
+   blocks arrive) equals phase 4's fit bit for bit, B1 and B2 launched
+   twice per product; its operator, and phase 4's wrapped into two shards,
+   give products at R = 1 and R = 30 equal to phase 4's operator's bit
+   for bit (ms sharded against unsharded printed); ``assoc_spa(...,
+   mesh=)`` over phase 7's GDS equals phase 7's table bit for bit, B3
+   twice per block; ``assoc_spa_sharded`` as process 0 and 1 of 2, then
+   ``merge_shards``, equals phase 7's table bit for bit;
+20. the command line: ``python -m saigegds_tpu_torch`` with ``--device
    cuda`` in a process of its own for ``fit --pheno-cols``, ``scan`` with
    two ``--model``, ``gxg``, ``merge`` and ``info`` on the small fit's
    data; each output against the API's on the card (fits and GxG 1e-8,
@@ -240,10 +256,19 @@ GXG_SMALL_PAIRS = ((11, 12), (40, 90), (75, 150), (300, 500))
 # ends positive, so the check covers the GLMM
 GXG_TAU_INIT = (0.0, 0.1)
 INT8_OPS_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
+MESH_SHARDS = 2         # shards of the mesh phase, all on the one card
 
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def mark(phase: str):
+    """Log the start of a phase with the seconds since the script began."""
+    log(f"== {phase} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def median_ms(fn, runs: int) -> float:
@@ -817,24 +842,122 @@ def profile_product(device, gen) -> dict:
     else:
         log("  device time by kernel: not measured (the profiler recorded "
             "no device events)")
-    return dict(ms=ms, kernels=dict(top))
+    forms = correction_forms(grm, b, gen)
+    return dict(ms=ms, kernels=dict(top), corrections=forms)
 
 
-def fit(gds: str, data: dict, device: str, quant: bool = False, **cfg):
+def correction_forms(grm, B, gen) -> dict:
+    """The product's two missing-pair corrections (per variant: the sum of
+    B over its missing samples; per sample: the sum of a [M, R] matrix
+    over its missing variants) in five forms on the same pairs: the ms of
+    each (median of 3, CUDA events) and whether two runs agree bit for
+    bit.  The port runs the last, ``embedding_bag`` sums over the pair
+    lists sorted at build time; ``index_add_`` with f64 atomics ran
+    before."""
+    import warnings
+    import torch
+
+    M, N = grm.n_variants, grm.n_samples
+    W = torch.randn(M, B.shape[1], dtype=torch.float64, device=B.device,
+                    generator=gen)
+    miss = grm.miss
+    mv, ms = miss.variants().long(), miss.samp.long()
+    P = len(ms)
+    starts_v = torch.cat([miss.var_start.long(), mv.new_tensor([P])])
+    starts_s = torch.cat([miss.samp_start.long(), mv.new_tensor([P])])
+    vs = miss.var.long()
+    ones = torch.ones(P, dtype=torch.float64, device=B.device)
+
+    def zeros(n):
+        return torch.zeros(n, B.shape[1], dtype=torch.float64,
+                           device=B.device)
+
+    def deterministic(fn):
+        def run():
+            torch.use_deterministic_algorithms(True)
+            try:
+                return fn()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        return run
+
+    def csr(crow, col, n_rows, n_cols, rhs):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return torch.sparse_csr_tensor(crow, col, ones,
+                                           (n_rows, n_cols)) @ rhs
+
+    per_variant = {
+        "index_add_": lambda: zeros(M).index_add_(0, mv, B[ms]),
+        "segment_reduce": lambda: torch.segment_reduce(
+            B[ms], "sum", lengths=starts_v.diff(), unsafe=True),
+        "CSR SpMM": lambda: csr(starts_v, ms, M, N, B),
+        "embedding_bag": lambda: miss.per_variant(B)}
+    per_sample = {
+        "index_add_": lambda: zeros(N).index_add_(0, ms, W[mv]),
+        "segment_reduce": lambda: torch.segment_reduce(
+            W[vs], "sum", lengths=starts_s.diff(), unsafe=True),
+        "CSR SpMM": lambda: csr(starts_s, vs, N, M, W),
+        "embedding_bag": lambda: miss.per_sample(W)}
+    for forms in (per_variant, per_sample):
+        forms["index_add_ deterministic"] = deterministic(forms["index_add_"])
+    out = {}
+    for name in ("index_add_", "index_add_ deterministic", "segment_reduce",
+                 "CSR SpMM", "embedding_bag"):
+        row = dict(repeat_equal=True)
+        for which, forms in (("per_variant", per_variant),
+                             ("per_sample", per_sample)):
+            same = torch.equal(forms[name](), forms[name]())
+            row["repeat_equal"] = row["repeat_equal"] and same
+            row[f"{which}_ms"] = median_ms(forms[name], 3)
+            torch.cuda.empty_cache()
+        row["ms"] = row["per_variant_ms"] + row["per_sample_ms"]
+        out[name] = row
+    log(f"  the missing-pair corrections alone at R = {B.shape[1]}, {P} "
+        f"pairs kept in {miss.nbytes} B on the card "
+        f"({miss.nbytes / max(P, 1):.2f} B per pair; two int64 lists were "
+        f"16) (ms per variant + per sample, median of 3, CUDA events; "
+        f"bit-equal when run twice): "
+        + "; ".join(f"{k} {v['per_variant_ms']:.3f} + "
+                    f"{v['per_sample_ms']:.3f} ({v['repeat_equal']})"
+                    for k, v in out.items())
+        + "; the port runs embedding_bag")
+    if not out["embedding_bag"]["repeat_equal"]:
+        raise AssertionError("the port's corrections differ from run to run")
+    return out
+
+
+def fit(gds: str, data: dict, device: str, quant: bool = False, mesh=None,
+        keep: dict = None, **cfg):
     """(model, instrument dict) of one fit_null_glmm run, of the binary
     trait ``y`` or (``quant``) the quantitative ``yq`` with the default
-    ``inv_norm``; ``cfg`` holds further NullModelConfig fields; the dict
-    also holds its wall seconds."""
+    ``inv_norm``, over ``mesh`` if given; ``cfg`` holds further
+    NullModelConfig fields; the dict also holds its wall seconds.  With
+    ``keep``, ``keep["grm"]`` receives the fit's GRM operator (by wrapping
+    ``fitnull._prepare_fit``)."""
     import torch
     from saigegds_tpu_torch import NullModelConfig, fit_null_glmm
+    from saigegds_tpu_torch.models import fitnull
 
     inst = {}
+    real = fitnull._prepare_fit
+
+    def keeping(*a, **k):
+        out = real(*a, **k)
+        keep["grm"] = out["grm"]
+        return out
+
+    if keep is not None:
+        fitnull._prepare_fit = keeping
     t0 = time.perf_counter()
     cfg = NullModelConfig(trait_type="quantitative" if quant else "binary",
                           **cfg)
-    model = fit_null_glmm(FORMULA_Q if quant else FORMULA, data, gds, cfg,
-                          instrument=inst, device=device)
-    if device == "cuda":
+    try:
+        model = fit_null_glmm(FORMULA_Q if quant else FORMULA, data, gds,
+                              cfg, instrument=inst, device=device, mesh=mesh)
+    finally:
+        fitnull._prepare_fit = real
+    if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     inst["wall_s"] = time.perf_counter() - t0
     return model, inst
@@ -877,6 +1000,24 @@ def check_matvec(codes: np.ndarray, device) -> float:
     return worst
 
 
+def same_fit(what: str, got, inst_got: dict, want, inst_want: dict,
+             counts=("outer_iterations", "pcg_iterations", "matvecs")):
+    """``got`` equals ``want`` bit for bit: tau, coefficients, fitted
+    values, variance ratios and their markers, and the ``counts`` of
+    their instrument dicts."""
+    for k in counts:
+        if inst_got[k] != inst_want[k]:
+            raise AssertionError(f"{what}: {k} {inst_got[k]} against "
+                                 f"{inst_want[k]}")
+    for k in ("tau", "coefficients", "fitted_values", "linear_predictors"):
+        if not np.array_equal(getattr(got, k), getattr(want, k)):
+            raise AssertionError(f"{what}: {k} differs, max relative "
+                                 f"{max_rel(getattr(got, k), getattr(want, k), k):.3e}")
+    for k in ("id", "ratio"):
+        if not np.array_equal(got.var_ratio[k], want.var_ratio[k]):
+            raise AssertionError(f"{what}: variance-ratio {k} differs")
+
+
 def compare_fits(gpu, cpu, inst_gpu: dict, inst_cpu: dict) -> float:
     """The card's small fit against the CPU's: tau, coefficients and
     variance ratios within RTOL_FIT, the same markers and iterations."""
@@ -899,7 +1040,8 @@ def compare_fits(gpu, cpu, inst_gpu: dict, inst_cpu: dict) -> float:
 
 
 def scan(gds: str, model, device: str, variant_mask=None,
-         packed_2bit: bool = True, block: int = BLOCK, dsnode: str = ""):
+         packed_2bit: bool = True, block: int = BLOCK, dsnode: str = "",
+         mesh=None):
     """(table, instrument dict, wall seconds) of one assoc_spa run."""
     import torch
     from saigegds_tpu_torch import ScanConfig, assoc_spa
@@ -910,8 +1052,8 @@ def scan(gds: str, model, device: str, variant_mask=None,
                                            packed_2bit=packed_2bit,
                                            dsnode=dsnode),
                     variant_mask=variant_mask, instrument=inst,
-                    device=device)
-    if device == "cuda":
+                    device=device, mesh=mesh)
+    if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     return tab, inst, time.perf_counter() - t0
 
@@ -1485,25 +1627,17 @@ def fit_options(work: str, device, gds_s: str, data_s: dict,
         raise AssertionError("no checkpoint after outer iteration 1")
     m_res, inst_res = fit(gds_s, data_s, "cuda", checkpoint=ck)
     m_ref, inst_ref = small
-    if inst_res["outer_iterations"] != inst_ref["outer_iterations"]:
-        raise AssertionError("the resumed fit ran another iteration count")
-    if not np.array_equal(m_res.var_ratio["id"], m_ref.var_ratio["id"]):
-        raise AssertionError("the resumed fit chose other markers")
-    worst_r = max(max_rel(getattr(m_res, k), getattr(m_ref, k), k)
-                  for k in ("tau", "coefficients"))
-    worst_r = max(worst_r, max_rel(m_res.var_ratio["ratio"],
-                                   m_ref.var_ratio["ratio"], "ratio"))
-    if worst_r > RTOL_FIT:
-        raise AssertionError(f"resumed fit vs uninterrupted: relative error "
-                             f"{worst_r:.3e} > {RTOL_FIT}")
+    # the resumed run counts only the products it ran itself
+    same_fit("the resumed fit", m_res, inst_res, m_ref, inst_ref,
+             counts=("outer_iterations",))
     left = [f for f in os.listdir(work) if f.startswith("ck_small")]
     if left:
         raise AssertionError(f"checkpoint files left: {left}")
-    log(f"fit killed in outer iteration 2 and resumed on the card: within "
-        f"{worst_r:.3e} of the uninterrupted card fit (limit {RTOL_FIT}; the "
-        f"missing-pair corrections are f64 atomics, so not bit for bit), "
-        f"{inst_res['outer_iterations']} outer iterations on both, "
-        f"checkpoint files removed; resume {inst_res['wall_s']:.1f} s")
+    log(f"fit killed in outer iteration 2 and resumed on the card: equal to "
+        f"the uninterrupted card fit bit for bit (tau, coefficients, fitted "
+        f"values, variance ratios, markers; {inst_res['outer_iterations']} "
+        f"outer iterations on both), checkpoint files removed; resume "
+        f"{inst_res['wall_s']:.1f} s")
 
 
 def phewas_fit(gds: str, data: dict, one_fit: dict, gds_s: str,
@@ -1803,6 +1937,119 @@ def gxg_phase(gds_fit: str, gds7: str, tab7: dict, data: dict, gds_s: str,
     return out
 
 
+def mesh_phase(gds_fit: str, data: dict, model, fit4: dict, op4,
+               gds7: str, tab7: dict, scan7: dict, work: str) -> dict:
+    """Phase 19: the sample-sharded fit and the variant-sharded scan over a
+    mesh of two shards on the one card (``make_mesh(devices=["cuda:0"] *
+    2)``): it proves the code path and measures what sharding costs on
+    one card, not a speed-up.  ``op4`` is phase 4's GRM operator."""
+    import torch
+    from saigegds_tpu_torch import ScanConfig
+    from saigegds_tpu_torch.parallel.distributed import assoc_spa_sharded, \
+        merge_shards
+    from saigegds_tpu_torch.parallel.mesh import ShardedGrmHandle, make_mesh
+
+    mesh = make_mesh(devices=["cuda:0"] * MESH_SHARDS)
+    log(f"mesh {mesh}: {MESH_SHARDS} shards on one card, so what follows "
+        f"proves the sharded paths and measures what sharding costs on one "
+        f"card, not a speed-up")
+
+    # the sample-sharded fit at full width, through from_streamed_blocks
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    kept = {}
+    model_m, inst_m = fit(gds_fit, data, "cuda", mesh=mesh, keep=kept,
+                          checkpoint=os.path.join(work, "ck_mesh"))
+    h = kept["grm"]
+    if not isinstance(h, ShardedGrmHandle):
+        raise AssertionError(f"the mesh fit built a {type(h).__name__}")
+    expect_launches("the sharded fit", {
+        "plane_dot_fwd": MESH_SHARDS * inst_m["matvecs"],
+        "plane_dot_t": MESH_SHARDS * inst_m["matvecs"]})
+    same_fit("the sharded fit", model_m, inst_m, model, fit4)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"sharded fit on the card: equal to phase 4's fit bit for bit (tau "
+        f"{model_m.tau.tolist()}, coefficients, fitted values, "
+        f"{len(model_m.var_ratio['ratio'])} variance ratios; "
+        f"{inst_m['outer_iterations']} outer, {inst_m['pcg_iterations']} PCG "
+        f"iterations, {inst_m['matvecs']} products on both); "
+        f"{inst_m['wall_s']:.1f} s wall = ingest {inst_m['ingest_s']:.1f} + "
+        f"AI-REML {inst_m['aireml_s']:.1f} + variance ratio "
+        f"{inst_m['var_ratio_s']:.1f} s against phase 4's "
+        f"{fit4['wall_s']:.1f} = {fit4['ingest_s']:.1f} + "
+        f"{fit4['aireml_s']:.1f} + {fit4['var_ratio_s']:.1f} s; store bytes "
+        f"per shard {h.store_bytes} (phase 4's one store "
+        f"{op4.packed.numel()}); peak device memory {peak:.2f} GiB")
+    for k in ("af", "inv", "diag"):
+        if not torch.equal(getattr(h, k), getattr(op4, k)):
+            raise AssertionError(f"the sharded build's {k} differs")
+
+    # the sharded product, both ways, against phase 4's operator
+    wrapped = ShardedGrmHandle(op4, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    prod = {}
+    for R in (1, PROFILE_COLS):
+        b = torch.randn(N_SAMPLES, R, dtype=torch.float64, device="cuda",
+                        generator=gen)
+        if R == 1:
+            b = b[:, 0]
+        want = op4.matvec(b)
+        for name, op in (("streamed", h), ("wrapped", wrapped)):
+            reset_launches()
+            got = op.matvec(b)
+            expect_launches(f"one sharded product ({name}, R = {R})", {
+                "plane_dot_fwd": MESH_SHARDS, "plane_dot_t": MESH_SHARDS})
+            if not torch.equal(got, want):
+                raise AssertionError(f"sharded product ({name}, R = {R}) "
+                                     f"differs from the unsharded one")
+        prod[R] = dict(sharded_ms=median_ms(lambda: h.matvec(b), 3),
+                       unsharded_ms=median_ms(lambda: op4.matvec(b), 3))
+        log(f"GRM product at R = {R}: sharded ({MESH_SHARDS} shards, built "
+            f"streamed and wrapped) equal to the unsharded one bit for bit; "
+            f"{prod[R]['sharded_ms']:.3f} ms sharded against "
+            f"{prod[R]['unsharded_ms']:.3f} ms unsharded (median of 3, CUDA "
+            f"events, one card)")
+    del wrapped, h, kept
+
+    # the variant-sharded scan of phase 7's GDS
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tab, inst, wall = scan(gds7, model, "cuda", mesh=mesh)
+    n_blocks = -(-N_VARIANTS // BLOCK)
+    expect_launches("the sharded scan",
+                    {"indicator_dot_2bit": MESH_SHARDS * n_blocks})
+    for c in tab7:
+        if not np.array_equal(tab[c], tab7[c]):
+            raise AssertionError(f"sharded scan: column {c} differs from "
+                                 f"phase 7's table")
+    log(f"sharded scan on the card: phase 7's table bit for bit "
+        f"({len(tab['pval'])} rows, {inst['spa_n']} through SPA), B3 "
+        f"launched {MESH_SHARDS} times per block; {wall:.2f} s wall, "
+        f"{N_VARIANTS / wall:.1f} variants/s against phase 7's "
+        f"{N_VARIANTS / scan7['wall']:.1f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the variant-range shard API, then the merge
+    prefix = os.path.join(work, "shards")
+    t0 = time.perf_counter()
+    reset_launches()
+    for pid in range(2):
+        assoc_spa_sharded(gds7, model, prefix, ScanConfig(block_size=BLOCK),
+                          process_id=pid, process_count=2, device="cuda")
+    merged = merge_shards(prefix)
+    t_shards = time.perf_counter() - t0
+    for c in tab7:
+        if not np.array_equal(merged[c], tab7[c]):
+            raise AssertionError(f"merged shards: column {c} differs from "
+                                 f"phase 7's table")
+    log(f"assoc_spa_sharded, process 0 and 1 of 2, then merge_shards: "
+        f"phase 7's table bit for bit ({len(merged['pval'])} rows; B3 "
+        f"launches {launches()['indicator_dot_2bit']}); {t_shards:.1f} s")
+    return dict(fit_wall=inst_m["wall_s"], peak_gib=peak, product=prod,
+                scan_vs=N_VARIANTS / wall)
+
+
 def cli_phase(work: str, gds_s: str, data_s: dict, card: str):
     """Phase 19: ``python -m saigegds_tpu_torch`` with ``--device cuda``
     in subprocesses: fit (--pheno-cols), scan (two --model), gxg, merge
@@ -1921,6 +2168,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     # 2. build, one nvcc per source, all at once
+    mark('2. build, one nvcc per source, all at once')
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         list(pool.map(_cuda.load, SOURCES))
@@ -1932,6 +2180,7 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # 3. kernels vs plain versions
+    mark('3. kernels vs plain versions')
     gen = torch.Generator(device=device).manual_seed(SEED)
     checks = [check_kernel(B, N, device, gen) for B, N in KERNEL_SHAPES]
     grm_checks = [check_grm(M, N, C, device, gen, library=(i == GRM_MAIN))
@@ -1946,6 +2195,7 @@ def main() -> int:
     os.makedirs(work, exist_ok=True)
     try:
         # 4. the fit at full width
+        mark('4. the fit at full width')
         t0 = time.perf_counter()
         codes, data = make_fit_data(N_SAMPLES, M_FIT, device, SEED)
         gds_fit = os.path.join(work, "fit.gds")
@@ -1958,7 +2208,8 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         ck = os.path.join(work, "ck_fit")
-        model, inst = fit(gds_fit, data, "cuda", checkpoint=ck)
+        kept4 = {}
+        model, inst = fit(gds_fit, data, "cuda", checkpoint=ck, keep=kept4)
         fit4 = inst
         fit_launches = expect_launches("the fit", {
             "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"]})
@@ -1980,6 +2231,7 @@ def main() -> int:
         profile_product(device, gen)
 
         # 5. the fit held against the CPU
+        mark('5. the fit held against the CPU')
         worst_mv = check_matvec(codes[:MV_ROWS], device)
         del codes
         n_s, m_s = FIT_SMALL
@@ -1999,6 +2251,7 @@ def main() -> int:
             f"{inst_cpu['wall_s']:.1f} s on the CPU")
 
         # 6. the quantitative fit at full width, on the fit phase's GDS
+        mark("6. the quantitative fit at full width, on the fit phase's GDS")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -2032,6 +2285,7 @@ def main() -> int:
         del m_gpu, m_cpu
 
         # 7. the scan from the fitted model
+        mark('7. the scan from the fitted model')
         t0 = time.perf_counter()
         codes, sample_id = with_extra_samples(
             make_data(data["y"], N_VARIANTS, device, SEED), data["sample.id"],
@@ -2092,6 +2346,7 @@ def main() -> int:
         del tab_cpu, tab_i8
 
         # 8. the scan from the quantitative model
+        mark('8. the scan from the quantitative model')
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         tab, inst, wall = scan(gds, model_q, "cuda")
@@ -2128,39 +2383,55 @@ def main() -> int:
         del tab_cpu, tab_i8
 
         # 9. the aggregate tests from the fitted model
+        mark('9. the aggregate tests from the fitted model')
         agg = aggregate(model, data["y"], work)
 
         # 10. the burden test of the quantitative model
+        mark('10. the burden test of the quantitative model')
         quant_burden(model_q, agg["gds"], agg["units"])
 
         # 11. the scans of imputed dosages
+        mark('11. the scans of imputed dosages')
         ds = ds_scan(data["y"], data["sample.id"], model, model_q, work,
                      device)
 
         # 12. the dense route against the packed route; assoc_spa_user
+        mark('12. the dense route against the packed route; assoc_spa_user')
         dense_vs_packed(gds, tab7, model, ds)
 
         # 13. the gene tests over the DS file
+        mark('13. the gene tests over the DS file')
         ds_gene_tests(ds["gds"], model, model_q)
 
         # 14. R files
+        mark('14. R files')
         r_files(model, gds, work)
 
         # 15. fit options at the small fit's size
+        mark("15. fit options at the small fit's size")
         fit_options(work, device, gds_s, data_s, small_binary)
 
         # 16. the PheWAS fit at full width; the small quantitative one
+        mark('16. the PheWAS fit at full width; the small quantitative one')
         phewas_models, _ = phewas_fit(gds_fit, data, fit4, gds_s, data_s,
                                       "cuda")
 
         # 17. the PheWAS scan: the lanes and the quantitative model
+        mark('17. the PheWAS scan: the lanes and the quantitative model')
         phewas_scan(gds, phewas_models, model_q, scan7, tab8)
         del tab8
 
         # 18. GxG
+        mark('18. GxG')
         gxg_phase(gds_fit, gds, tab7, data, gds_s, data_s)
 
-        # 19. the command line
+        # 19. the sample-sharded fit and the variant-sharded scan
+        mark('19. the sample-sharded fit and the variant-sharded scan')
+        mesh_phase(gds_fit, data, model, fit4, kept4.pop("grm"), gds, tab7,
+                   scan7, work)
+
+        # 20. the command line
+        mark('20. the command line')
         cli_phase(work, gds_s, data_s, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2194,6 +2465,7 @@ def main() -> int:
               "saigegds_tpu/ops/pallas_sparse.py:160",
               agg_launches["decode_codes"], b5_checks, b5_checks[1]),
     ]
+    mark("all phases done")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,6 @@ turns into factor levels.  ``--shard``, ``--chr``, ``--pos-range`` and
 """
 
 import argparse
-import glob
 import math
 import sys
 
@@ -174,10 +173,11 @@ def main(argv=None):
         return 0
 
     if args.cmd == "merge":
-        paths = sorted(glob.glob(f"{args.prefix}.part*"))
-        if not paths:
-            sys.exit(f"no shards matching {args.prefix}.part*")
-        tab = st.load_pval(paths)
+        from saigegds_tpu_torch.parallel.distributed import merge_shards
+        try:
+            tab = merge_shards(args.prefix)
+        except FileNotFoundError as e:
+            sys.exit(str(e))
         st.save_assoc(tab, args.out)
         print(f"merged {len(next(iter(tab.values())))} rows -> {args.out}")
         return 0
@@ -216,8 +216,10 @@ def main(argv=None):
         if args.shard or args.chr or args.pos_range:
             mask = np.ones(seq.n_variants, bool)
             if args.shard:
+                from saigegds_tpu_torch.parallel.distributed import \
+                    host_variant_range
                 i, n = _parse_shard(args.shard)
-                lo, hi = _variant_range(seq.n_variants, i, n)
+                lo, hi = host_variant_range(seq.n_variants, i, n)
                 shard = np.zeros(seq.n_variants, bool)
                 shard[lo:hi] = True
                 mask &= shard
@@ -273,13 +275,6 @@ def main(argv=None):
     print(f"{args.cmd}: {len(next(iter(tab.values())))} units -> "
           f"{args.out}")
     return 0
-
-
-def _variant_range(n_variants: int, i: int, n: int):
-    """Contiguous [start, stop) variant range of shard ``i`` of ``n``."""
-    per = -(-n_variants // n)
-    start = min(i * per, n_variants)
-    return start, min(start + per, n_variants)
 
 
 def _parse_shard(spec: str):

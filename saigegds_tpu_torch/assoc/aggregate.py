@@ -60,7 +60,8 @@ from ..ops.score_packed import BURDEN_S_CAP, burden_score_packed, \
 from ..ops.sparse_codes import encode_sparse_rows
 from ..utils.stats import acat_p
 from .single import CHECK_ELEMS, DEPTH, SPA_FLUSH_BYTES, _match_samples, \
-    _pack2_block, _packed_parts, _shrink_f32, _spa_cap, _spa_nnz, _to_device
+    _pack2_block, _packed_parts, _shrink_f32, _spa_batches, _spa_caps, \
+    _spa_nnz, _to_device
 
 SINGLE_FETCH = 512   # variants per random-access fetch in the singles stream
 MAX_SPAN = 8192      # variants per contiguous dosage read of a unit
@@ -413,13 +414,13 @@ class _SpaAccum:
             a = stacked.cpu().numpy()     # one stacked [4, B] readback
             self.results.append((r, a[0], a[1] != 0, a[2], a[3]))
 
-        for s in range(0, len(rows), B):
-            Gi = Gs[s : s + B]
+        caps = _spa_caps(Gs)
+        for s, e in _spa_batches(caps, B):
             res = spa_refine_binary(self.k.scan_model,
-                                    _to_device(_shrink_f32(Gi),
+                                    _to_device(_shrink_f32(Gs[s:e]),
                                                self.k.device),
-                                    cap=_spa_cap(Gi))
-            pending.append((rows[s : s + B],
+                                    cap=int(caps[s]))
+            pending.append((rows[s:e],
                             torch.stack([res[0], res[1].to(torch.float64),
                                          res[2], res[3]])))
             if len(pending) >= DEPTH:

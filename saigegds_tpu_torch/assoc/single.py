@@ -139,7 +139,7 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
               res_savefn: str = "", verbose: bool = False,
               variant_mask: Optional[np.ndarray] = None,
               res_compress: str = "LZMA", instrument=None, *,
-              device) -> dict:
+              device, mesh=None) -> dict:
     """Score-test + SPA scan over all variants of a SeqArray GDS file, on
     ``device`` ("cuda" runs phase 1 of hard calls through the hand-written
     kernels, and of dosages through f64 tensor code on the card).
@@ -150,17 +150,20 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
     the dense dosage route.  ``variant_mask`` restricts the scan;
     ``res_compress`` is the output compression of :func:`save_assoc`.
     ``instrument``: optional dict that collects per-stage wall-times (see
-    :func:`_scan_blocks`).  Returns the result table as an ordered dict of
-    numpy columns.
+    :func:`_scan_blocks`).  ``mesh`` (``parallel/mesh.make_mesh``, its
+    lead device ``device``) splits each block's variants over the mesh's
+    devices, phase 1 of each part on its device against a copy of the
+    model; SPA runs on the lead, and the table equals the one-device
+    table.  Returns the result table as an ordered dict of numpy columns.
     """
-    dev = check_device(device)
+    dev = _scan_device(device, mesh)
     model = NullModel.load(modobj)
     seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
     if verbose:
         print(f"SPA association scan ({model.trait_type} trait) on {dev}: "
               f"{seq.n_variants} variants x {model.n_samples} samples")
     tab = _scan_models(seq, [model], config, variant_mask, instrument,
-                       dev)[0]
+                       dev, mesh)[0]
     if verbose:
         n = len(tab["id"])
         print(f"    tested {n} variants (filters dropped "
@@ -172,8 +175,17 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
     return tab
 
 
+def _scan_device(device, mesh) -> torch.device:
+    """The scan's device: ``device``, which must be the lead of
+    ``mesh``."""
+    if mesh is None:
+        return check_device(device)
+    from ..parallel.mesh import check_lead
+    return check_lead(mesh, device)
+
+
 def _scan_models(seq: SeqData, models: list, config: ScanConfig,
-                 variant_mask, instrument, dev) -> list:
+                 variant_mask, instrument, dev, mesh=None) -> list:
     """One pass of the genotypes of ``seq`` for the NullModels ``models``
     (over the same GDS samples): the route, the blocks and the scan core;
     one table per model."""
@@ -213,7 +225,7 @@ def _scan_models(seq: SeqData, models: list, config: ScanConfig,
         scan_models, _scan_params(config), blocks, dev,
         packed_2bit=config.packed_2bit, sparse=_static_sparse(config),
         spa_compact=config.spa_compact, cols=cols0, instrument=instrument,
-        dense=dense)
+        dense=dense, mesh=mesh)
     return [_with_meta(seq, r) for r in res]
 
 
@@ -264,21 +276,17 @@ def assoc_spa_multi(gdsfile, modobjs, config: ScanConfig = ScanConfig(),
     mix, and every model must select the same GDS sample columns.  The
     filters come from the shared ``config``, so every table covers the
     same variants in the same order; each table has the columns of
-    :func:`assoc_spa`'s.  A model over only part of the GDS samples keeps
-    the packed route (each block is gathered to those samples before the
-    pack), where the JAX package takes its dense dosage route; both give
-    the same table.  ``res_savefn``: a pattern with ``{}`` (the model's
+    :func:`assoc_spa`'s; ``mesh`` as :func:`assoc_spa`'s.  A model over
+    only part of the GDS samples keeps the packed route (each block is
+    gathered to those samples before the pack), where the JAX package
+    takes its dense dosage route; both give the same table.  ``res_savefn``: a pattern with ``{}`` (the model's
     index).  ``model_batch`` > 0 scans at most that many models per pass
     of the genotypes.  ``instrument``: as :func:`assoc_spa`'s, for all
     models together.  Returns one table per model.
     """
-    dev = check_device(device)
+    dev = _scan_device(device, mesh)
     if not modobjs:
         raise ValueError("assoc_spa_multi: empty model list")
-    if mesh is not None:
-        raise NotImplementedError(
-            "a multi-device scan is not ported to the PyTorch port yet "
-            "(ROADMAP Queue A, item 10)")
     if res_savefn:
         # fail malformed patterns before the scan runs
         try:
@@ -293,7 +301,7 @@ def assoc_spa_multi(gdsfile, modobjs, config: ScanConfig = ScanConfig(),
         for g0 in range(0, len(modobjs), model_batch):
             grp = modobjs[g0:g0 + model_batch]
             tabs = assoc_spa_multi(gdsfile, grp, config, "", verbose,
-                                   variant_mask, None, res_compress,
+                                   variant_mask, mesh, res_compress,
                                    instrument=instrument, device=dev)
             if res_savefn:
                 for i, tab in enumerate(tabs):
@@ -308,7 +316,7 @@ def assoc_spa_multi(gdsfile, modobjs, config: ScanConfig = ScanConfig(),
         print(f"SPA association scan x{len(models)} models ({kinds}) on "
               f"{dev}: {seq.n_variants} variants, one genotype pass")
     results = _scan_models(seq, models, config, variant_mask, instrument,
-                           dev)
+                           dev, mesh)
     if res_savefn:
         for i, tab in enumerate(results):
             save_assoc(tab, res_savefn.format(i), res_compress=res_compress)
@@ -370,7 +378,8 @@ def _scan_blocks(scan_model, params, block_iter, device: torch.device,
 def _scan_blocks_multi(models, params, block_iter, device: torch.device,
                        packed_2bit: bool = True, sparse: bool = False,
                        spa_compact: bool = True, cols=None,
-                       instrument=None, dense: bool = False) -> list:
+                       instrument=None, dense: bool = False,
+                       mesh=None) -> list:
     """Two-phase scan core: batched score kernel + compact SPA, for one or
     several models over ONE pass of the genotype stream (the JAX
     package's ``_scan_blocks_multi``).
@@ -393,7 +402,12 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
     to the dense score test, and phase 2 ships the flagged rows the same
     way.  ``cols`` (GDS columns of the models' samples, from
     :func:`_match_samples`) gathers every block to those samples before it
-    is packed, so phase 1 and phase 2 both see them.
+    is packed, so phase 1 and phase 2 both see them.  With ``mesh`` (its
+    lead is ``device``), each payload's rows are split into one part per
+    device of the mesh (``parallel/mesh.shard_variant_batch``), uploaded
+    there and scored against that device's copy of the models; phase 2
+    runs on the lead, and the sparse route is off (its entry streams do
+    not split by variant, as in the JAX package).
 
     ``instrument``: optional dict; per-block wall-times land in lists
     under ``decode_s`` (GDS block read, decode thread), ``pack_s`` (2-bit
@@ -414,14 +428,20 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
         instrument.setdefault("spa_n", 0)
     P = len(models)
     if dense:
-        phase1 = [(lambda payload, sm=sm, kern=score_stats_binary if b
-                   else score_stats_quant: kern(sm, params, payload))
-                  for sm, b in models]
+        kerns = [score_stats_binary if b else score_stats_quant
+                 for _sm, b in models]
+        states = [sm for sm, _b in models]
     else:
-        phase1 = [(lambda payload, pm=pack_scan_model(sm),
-                   kern=score_stats_binary_packed if b
-                   else score_stats_quant_packed: kern(pm, params, payload))
-                  for sm, b in models]
+        kerns = [score_stats_binary_packed if b else score_stats_quant_packed
+                 for _sm, b in models]
+        states = [pack_scan_model(sm) for sm, _b in models]
+    if mesh is None:
+        on = {device: states}          # the models' state by device
+    else:
+        from ..parallel.mesh import replicate, shard_variant_batch
+        copies = [replicate(mesh, st) for st in states]
+        on = {d: [c[d] for c in copies] for d in mesh.distinct()}
+        sparse = False
     rows_idx = []
     outs = [[] for _ in range(P)]
     spa_G = [[] for _ in range(P)]      # flagged variants for phase 2
@@ -461,10 +481,19 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
                 instrument["pack_s"].append(_time.perf_counter() - t0)
             yield idx, G, parts
 
+    def _upload(rows, pl):
+        """[(rows, device, payload there)]: the part on the scan's device,
+        or split by rows over the mesh."""
+        if mesh is None:
+            return [(rows, device, _to_device(pl, device))]
+        return [(rows[r], t.device, t) for r, t in
+                shard_variant_batch(mesh, pl)]
+
     def _uploaded(it):
         for idx, G, parts in it:
             t0 = _time.perf_counter()
-            dev_parts = [(rows, _to_device(pl, device)) for rows, pl in parts]
+            dev_parts = [part for rows, pl in parts
+                         for part in _upload(rows, pl)]
             if instrument is not None:
                 instrument["upload_s"].append(_time.perf_counter() - t0)
                 instrument["bytes"].append(sum(
@@ -540,18 +569,17 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
             order = np.argsort(_spa_nnz(Gs), kind="stable")
             Gs, rows = Gs[order], rows[order]
         N = Gs.shape[1]
+        caps = _spa_caps(Gs, spa_compact)
 
         codes = np.issubdtype(Gs.dtype, np.integer)
 
         def _spa_payloads():
             # payload build + upload in the prefetch worker, like phase 1;
             # codes ship 2-bit packed (N/4 bytes per variant)
-            for s in range(0, len(rows), SPA_BATCH):
-                Gi = Gs[s : s + SPA_BATCH]
-                cap = _spa_cap(Gi) if spa_compact else 0
+            for s, e in _spa_batches(caps, SPA_BATCH):
+                Gi = Gs[s:e]
                 payload = _pack2_block(Gi) if codes else _shrink_f32(Gi)
-                yield rows[s : s + SPA_BATCH], \
-                    _to_device(payload, device), cap
+                yield rows[s:e], _to_device(payload, device), int(caps[s])
 
         for r, Gb, cap in _prefetch_blocks(_spa_payloads()):
             res = spa_refine_binary(scan_model, Gb, cap=cap,
@@ -564,8 +592,8 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
 
     for idx, G, parts in block_iter:
         t_di = _time.perf_counter()
-        results = [[(rows, stack_stats(ph(payload))) for rows, payload in parts]
-                   for ph in phase1]
+        results = [[(rows, stack_stats(kerns[p](on[d][p], params, payload)))
+                    for rows, d, payload in parts] for p in range(P)]
         if instrument is not None:
             instrument["dispatch_s"].append(_time.perf_counter() - t_di)
         window.append((idx, G, results))
@@ -691,12 +719,31 @@ def _spa_nnz(Gi: np.ndarray) -> np.ndarray:
     return np.nan_to_num(g != 0).sum(axis=1)
 
 
-def _spa_cap(Gi: np.ndarray) -> int:
-    """Power-of-two bucket covering the batch's max nonzero count after
-    imputation + flip (so compaction is exact); 0 disables compaction."""
-    nnz_max = int(_spa_nnz(Gi).max(initial=0))
-    cap = 1 << max(10, int(nnz_max - 1).bit_length())
-    return 0 if cap >= 0.75 * Gi.shape[1] else cap
+def _spa_caps(Gs: np.ndarray, compact: bool = True) -> np.ndarray:
+    """Each variant's SPA compaction width: the power-of-two bucket (at
+    least 1,024) covering its nonzero count after imputation + flip (so
+    compaction is exact); 0 (no compaction) where that bucket reaches 3/4
+    of the samples, or without ``compact``."""
+    if not compact:
+        return np.zeros(len(Gs), np.int64)
+    caps = np.array([1 << max(10, int(v - 1).bit_length())
+                     for v in _spa_nnz(Gs)], np.int64)
+    return np.where(caps >= 0.75 * Gs.shape[1], 0, caps)
+
+
+def _spa_batches(caps: np.ndarray, size: int) -> list:
+    """[start, stop) SPA batches of at most ``size`` rows that share one
+    compaction width, so that a variant is refined at its own width
+    whatever else is flagged (rows sorted by nonzero count keep equal
+    widths together)."""
+    out, s = [], 0
+    while s < len(caps):
+        e = min(s + size, len(caps))
+        other = np.flatnonzero(caps[s:e] != caps[s])
+        e = s + int(other[0]) if len(other) else e
+        out.append((s, e))
+        s = e
+    return out
 
 
 def _match_samples(gds_samples, model_samples):

@@ -44,11 +44,6 @@ from .glm import GlmFit, ObjNoK, glm_binomial, glm_gaussian, \
 from .nullmodel import NullModel
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch port "
-                               f"yet (ROADMAP Queue A, {item})")
-
-
 # ---------------------------------------------------------------------------
 # family callbacks (R family objects: linkinv, mu.eta, variance)
 
@@ -376,10 +371,11 @@ def fit_ai_pcg(grm: _FitGRM, fit0: GlmFit, X: np.ndarray, tau: np.ndarray,
     finished fit, go to ``{checkpoint}.fit.npz``; a later call resumes from
     that file.  Replay is exact on the CPU: each iteration is Markov in
     (tau, alpha, eta), since the trace estimate restarts its R-RNG stream
-    per call.  On a card the missing-pair corrections of the GRM product
-    are f64 atomics, so a resumed fit there agrees with an uninterrupted
-    one to the solver's precision rather than bit for bit.  A file of
-    another model shape is ignored with a warning."""
+    per call.  The GRM product is deterministic on a card too (its
+    missing-pair corrections are segment sums in a fixed order,
+    ``ops/packed_grm.MissingPairs``), so there a resumed fit equals an
+    uninterrupted one bit for bit as well.  A file of another model shape
+    is ignored with a warning."""
     family = _Binomial() if binary else _Gaussian()
     y = fit0.y.astype(np.float64)
     n = len(y)
@@ -1003,7 +999,14 @@ def fit_null_glmm(formula: str, data, gdsfile,
     ``config.checkpoint`` makes the fit resumable (see :func:`fit_ai_pcg`
     and :func:`calc_var_ratio`; the files are removed once the model is
     assembled); ``config.var_ratio_mac_cat`` estimates a variance ratio
-    per MAC category (:func:`calc_var_ratio_cat`).  The fit's events
+    per MAC category (:func:`calc_var_ratio_cat`).  ``mesh``
+    (``parallel/mesh.make_mesh``) shards the GRM's genotypes over sample
+    ranges, one per device of the mesh (``ShardedGrmHandle``; the streamed
+    ingest builds each range's store as the blocks arrive), for a GRM
+    larger than one card; its lead device must be ``device``, and a 2-bit
+    fit equals the unsharded one bit for bit (the dense oracle's products
+    sum f64 partials over the ranges, which reassociates).  The fit's
+    events
     (``utils/telemetry.py``: iterations, tau retries, trace escalations,
     variance-ratio markers) land in ``model.fit_log``.
     """
@@ -1012,13 +1015,14 @@ def fit_null_glmm(formula: str, data, gdsfile,
     if cfg.trait_type not in ("binary", "quantitative"):
         raise ValueError(f"Invalid trait type {cfg.trait_type!r}")
     if mesh is not None:
-        raise _not_ported("A multi-device fit", "item 10")
+        from ..parallel.mesh import check_lead
+        dev = check_lead(mesh, dev)
     seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
     resp, covs = _parse_formula(formula)
 
     t0 = time.perf_counter()
     prep = _prepare_fit(seq, data, cfg, resp, covs, variant_id, verbose,
-                        formula, dev)
+                        formula, dev, mesh=mesh)
     grm = _FitGRM(prep["grm"])
     t1 = time.perf_counter()
 
@@ -1090,7 +1094,11 @@ def fit_null_glmm_multi(formulas, data, gdsfile,
     if cfg.trait_type not in ("binary", "quantitative"):
         raise ValueError(f"Invalid trait type {cfg.trait_type!r}")
     if mesh is not None:
-        raise _not_ported("A multi-device fit", "item 10")
+        raise NotImplementedError(
+            "fit_null_glmm_multi takes no mesh, as the JAX package's PheWAS "
+            "fit takes none; fit a GRM sharded over devices one phenotype "
+            "at a time with fit_null_glmm(mesh=) (ROADMAP Queue A, Not "
+            "ported)")
     binary = cfg.trait_type == "binary"
     if isinstance(formulas, str):
         formulas = [formulas]
@@ -1250,14 +1258,18 @@ def _trait_start(y_raw: np.ndarray, X_new: np.ndarray,
 
 
 def _prepare_fit(seq: SeqData, data, cfg, resp, covs, variant_id,
-                 verbose, formula_str, dev, harvest: bool = True):
+                 verbose, formula_str, dev, harvest: bool = True,
+                 mesh=None):
     """The fit preamble: sample alignment, variant filtering, GRM SNP
     down-sampling, covariate design + QR transform, and the GRM build on
     ``dev`` -- everything before the response enters (reference
     R/saige_main.r:303-420).  ``resp`` is one response column or a list
     of them (``fit_null_glmm_multi``: the samples are then the complete
     cases of ALL of them).  ``harvest=False`` skips the variance-ratio
-    marker rows of a streamed build (GxG needs none)."""
+    marker rows of a streamed build (GxG needs none).  With ``mesh`` the
+    GRM is a ``parallel/mesh.ShardedGrmHandle``: built range by range from
+    the streamed blocks, or wrapping the in-memory build (JAX
+    ``saigegds_tpu/models/fitnull.py:1195-1224``)."""
     # sample alignment (R/saige_main.r:303-313): complete cases of the
     # used columns, in the GDS file's sample order
     term_vars = _term_vars(covs)
@@ -1399,12 +1411,21 @@ def _prepare_fit(seq: SeqData, data, cfg, resp, covs, variant_id,
                 local0 += blk.shape[0]
                 yield idx, blk
 
-        grm = build_packed2_grm_streamed(blocks(), n_samp, n_var, device=dev)
+        if mesh is None:
+            grm = build_packed2_grm_streamed(blocks(), n_samp, n_var,
+                                             device=dev)
+        else:
+            from ..parallel.mesh import ShardedGrmHandle
+            grm = ShardedGrmHandle.from_streamed_blocks(blocks(), n_samp,
+                                                        n_var, mesh)
         codes = marker_rows            # row provider for calc_var_ratio
     elif impl == "packed2":
         grm = build_packed2_grm(codes, device=dev)
     else:
         grm = build_grm(codes, device=dev)
+    if mesh is not None and not streamed:
+        from ..parallel.mesh import ShardedGrmHandle
+        grm = ShardedGrmHandle(grm, mesh)
 
     return dict(data=cols, sample_id=sample_id, grm=grm, codes=codes,
                 marker_order=marker_order, variant_id=variant_id, X=X,

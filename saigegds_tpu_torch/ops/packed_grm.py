@@ -18,7 +18,9 @@ are padding samples of code 0), so
     G_std @ v = diag(inv) @ (Cm @ v - 2 af * (mask @ v))
 
 where the missing entries' share of ``mask @ v`` (and of the transpose's
-centering term) is corrected from the sparse (variant, sample) pair lists.
+centering term) is corrected from the sparse (variant, sample) pair lists
+(:class:`MissingPairs`).  A product also runs over a store kept as sample
+ranges, one per device (:func:`sharded_product`, ``parallel/mesh.py``).
 The JAX package's tile/leaf split of the store existed for its compiler
 and is not ported.
 """
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import grm_kernel
 
@@ -142,6 +145,90 @@ def _pack2_zeroed(codes: np.ndarray) -> np.ndarray:
     return pack_codes_2bit(np.where(codes < 3, codes, 0))
 
 
+
+
+# ---------------------------------------------------------------------------
+# the missing pairs
+
+
+def _first_index(sorted_idx: torch.Tensor, n: int) -> torch.Tensor:
+    """For i < n, the position of the first entry >= i of ``sorted_idx``:
+    where segment i of a sorted pair list starts."""
+    return torch.searchsorted(sorted_idx.contiguous(), torch.arange(
+        n, dtype=sorted_idx.dtype, device=sorted_idx.device))
+
+
+def _segment_sums(idx: torch.Tensor, start: torch.Tensor,
+                  src: torch.Tensor) -> torch.Tensor:
+    """Row k: the sum of ``src[idx[j]]`` over the pairs j of segment k
+    (``start[k]`` up to the next segment's start), added one after another
+    from zero -- ``embedding_bag``'s sum, whose kernel on a card and loop on
+    the CPU both keep that order."""
+    if idx.numel() == 0:
+        return src.new_zeros(start.numel(), src.shape[1])
+    if idx.dtype == torch.int32 and src.numel() >= 1 << 31:
+        idx, start = idx.long(), start.long()
+    return F.embedding_bag(idx, src, start, mode="sum")
+
+
+class MissingPairs:
+    """The missing (variant, sample) pairs of a GRM store, sorted once when
+    the store is built, so that each of the product's two corrections is a
+    segment sum in a fixed order.
+
+    ``samp`` holds the pairs' samples sorted by variant and ``var_start``
+    [M] where each variant's pairs start; ``var`` holds their variants
+    sorted by sample and ``samp_start`` [N] where each sample's pairs
+    start (both sorts stable, so each segment keeps the order of the lists
+    given: (variant, sample) order from the builds).  The lists are int32
+    while they hold fewer than 2^31 pairs: 8 B per pair, beside (M + N)
+    starts.  A segment's rows add in list order from zero, on a card as on
+    the CPU, so a product does not depend on thread timing, and on the CPU
+    the sums equal ``index_add_`` over the same lists bit for bit."""
+
+    def __init__(self, miss_var, miss_samp, n_variants: int,
+                 n_samples: int):
+        mv = torch.as_tensor(miss_var).to(torch.int64)
+        ms = torch.as_tensor(miss_samp).to(mv.device, torch.int64)
+        dt = torch.int32 if mv.numel() < 1 << 31 else torch.int64
+        self.n_variants, self.n_samples = int(n_variants), int(n_samples)
+        ms_sorted, order = torch.sort(ms, stable=True)
+        self.var = mv[order].to(dt)
+        self.samp_start = _first_index(ms_sorted, self.n_samples).to(dt)
+        del ms_sorted, order
+        if mv.numel() > 1 and not bool((mv[1:] >= mv[:-1]).all()):
+            order = torch.sort(mv, stable=True).indices
+            mv, ms = mv[order], ms[order]
+        self.samp = ms.to(dt)
+        self.var_start = _first_index(mv, self.n_variants).to(dt)
+
+    def __len__(self) -> int:
+        return self.samp.numel()
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in
+                   (self.samp, self.var_start, self.var, self.samp_start))
+
+    def variants(self) -> torch.Tensor:
+        """The pairs' variants, in the order of ``samp``."""
+        ends = torch.cat([self.var_start[1:], self.var_start.new_tensor(
+            [len(self)])])
+        return torch.repeat_interleave(
+            torch.arange(self.n_variants, dtype=self.samp.dtype,
+                         device=self.samp.device), ends - self.var_start)
+
+    def per_variant(self, B: torch.Tensor) -> torch.Tensor:
+        """[M, R]: each variant's sum of ``B`` [N, R] over its missing
+        samples."""
+        return _segment_sums(self.samp, self.var_start, B)
+
+    def per_sample(self, W: torch.Tensor) -> torch.Tensor:
+        """[N, R]: each sample's sum of ``W`` [M, R] over the variants it
+        misses."""
+        return _segment_sums(self.var, self.samp_start, W)
+
+
 # ---------------------------------------------------------------------------
 # the operator
 
@@ -150,11 +237,11 @@ class Packed2GRM:
     """GRM operator over 2-bit planar-packed genotypes resident on a device.
 
     ``packed`` uint8 [M, N4] (missing zeroed), ``af``/``inv`` f64 [M],
-    ``diag`` f64 [N] = diag(GRM), and the missing entries as two int64
-    index lists ``miss_var``/``miss_samp`` of equal length, all on one
-    device.  ``matvecs`` counts the products taken, and ``widths`` the
-    products by the column count C that kernels B1 and B2 ran at
-    (:func:`kernel_cols`)."""
+    ``diag`` f64 [N] = diag(GRM), and the missing entries, given as two
+    index lists ``miss_var``/``miss_samp`` of equal length and kept as
+    :class:`MissingPairs` (``miss``), all on one device.  ``matvecs``
+    counts the products taken, and ``widths`` the products by the column
+    count C that kernels B1 and B2 ran at (:func:`kernel_cols`)."""
 
     def __init__(self, packed, af, inv, diag, miss_var, miss_samp,
                  n_samples: int):
@@ -162,21 +249,29 @@ class Packed2GRM:
         self.af = af
         self.inv = inv
         self.diag = diag
-        self.miss_var = miss_var
-        self.miss_samp = miss_samp
         self.n_variants = packed.shape[0]
         self.n_samples = int(n_samples)
+        self.miss = MissingPairs(miss_var, miss_samp, self.n_variants,
+                                 self.n_samples)
         self.device = packed.device
         self.matvecs = 0
         self.widths = {}
+
+    @property
+    def miss_var(self) -> torch.Tensor:
+        return self.miss.variants()
+
+    @property
+    def miss_samp(self) -> torch.Tensor:
+        return self.miss.samp
 
     def matvec(self, b: torch.Tensor) -> torch.Tensor:
         """GRM @ b for b [N] or [N, R] f64 on this operator's device."""
         self.matvecs += 1
         C = kernel_cols(1 if b.dim() == 1 else b.shape[1])
         self.widths[C] = self.widths.get(C, 0) + 1
-        return packed2_grm_matvec(self.packed, self.af, self.inv,
-                                  self.miss_var, self.miss_samp, b)
+        return sharded_product([(self.packed, self.n_samples)], self.af,
+                               self.inv, self.miss, b)
 
     @classmethod
     def from_arrays(cls, packed, af, inv, diag, miss_var, miss_samp,
@@ -214,20 +309,14 @@ def build_packed2_grm(codes: np.ndarray, *, device) -> Packed2GRM:
                                   mv, ms, n_samples=N, device=device)
 
 
-def build_packed2_grm_streamed(block_iter, n_samples: int, n_variants: int,
-                               *, device) -> Packed2GRM:
-    """Streamed build from ``(idx, int8 codes [b, N])`` blocks that hold
-    ``n_variants`` rows in all: host peak memory is one block; the store is
-    allocated once on ``device`` (device peak: the store) and each block is
-    packed on the host and copied into it at once.
-
-    Equals :func:`build_packed2_grm` on the concatenated codes exactly,
-    except ``diag``: its per-block partial sums reassociate, so it agrees
-    to a few ulps (as in the JAX package)."""
+def stream_moments(block_iter, n_samples: int, n_variants: int, store_rows):
+    """The host half of a streamed build: ``_variant_moments`` of each
+    ``(idx, int8 codes [b, N])`` block over all samples, while
+    ``store_rows(row0, codes)`` places the block's rows in the store(s).
+    Returns f64 af, inv, diag / M and the int64 missing-pair lists, all
+    numpy; raises unless the blocks hold ``n_variants`` rows."""
     af_parts, inv_parts, miss_v, miss_s = [], [], [], []
     diag = np.zeros(n_samples, np.float64)
-    store = torch.empty((n_variants, store_width(n_samples)),
-                        dtype=torch.uint8, device=device)
     row0 = 0
     for _idx, codes in block_iter:
         codes = np.ascontiguousarray(codes, dtype=np.int8)
@@ -241,7 +330,7 @@ def build_packed2_grm_streamed(block_iter, n_samples: int, n_variants: int,
         miss_s.append(ms.astype(np.int64))
         af_parts.append(af)
         inv_parts.append(inv)
-        store[row0:row0 + b].copy_(torch.from_numpy(_pack2_zeroed(codes)))
+        store_rows(row0, codes)
         row0 += b
     M = row0
     if M != n_variants:
@@ -249,12 +338,33 @@ def build_packed2_grm_streamed(block_iter, n_samples: int, n_variants: int,
                          f"n_variants={n_variants}")
     cat = lambda parts, dt: np.concatenate(parts) if parts else \
         np.empty(0, dt)
+    return (cat(af_parts, np.float64), cat(inv_parts, np.float64),
+            diag / M, cat(miss_v, np.int64), cat(miss_s, np.int64))
+
+
+def build_packed2_grm_streamed(block_iter, n_samples: int, n_variants: int,
+                               *, device) -> Packed2GRM:
+    """Streamed build from ``(idx, int8 codes [b, N])`` blocks that hold
+    ``n_variants`` rows in all: host peak memory is one block; the store is
+    allocated once on ``device`` (device peak: the store) and each block is
+    packed on the host and copied into it at once.
+
+    Equals :func:`build_packed2_grm` on the concatenated codes exactly,
+    except ``diag``: its per-block partial sums reassociate, so it agrees
+    to a few ulps (as in the JAX package)."""
+    store = torch.empty((n_variants, store_width(n_samples)),
+                        dtype=torch.uint8, device=device)
+
+    def store_rows(row0, codes):
+        store[row0:row0 + codes.shape[0]].copy_(
+            torch.from_numpy(_pack2_zeroed(codes)))
+
+    af, inv, diag, mv, ms = stream_moments(block_iter, n_samples,
+                                           n_variants, store_rows)
     f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
-    return Packed2GRM(store, f64(cat(af_parts, np.float64)),
-                      f64(cat(inv_parts, np.float64)), f64(diag / M),
-                      torch.as_tensor(cat(miss_v, np.int64), device=device),
-                      torch.as_tensor(cat(miss_s, np.int64), device=device),
-                      n_samples)
+    return Packed2GRM(store, f64(af), f64(inv), f64(diag),
+                      torch.as_tensor(mv, device=device),
+                      torch.as_tensor(ms, device=device), n_samples)
 
 
 def kernel_cols(R: int) -> int:
@@ -278,37 +388,70 @@ def _pad_cols(x: torch.Tensor, C: int) -> torch.Tensor:
     return out
 
 
-def packed2_grm_matvec(packed, af, inv, miss_var, miss_samp,
-                       b: torch.Tensor) -> torch.Tensor:
-    """GRM @ b from the 2-bit store; b [N] or [N, R] f64.
+def fwd_partial(packed: torch.Tensor, d_rows: torch.Tensor,
+                C: int) -> torch.Tensor:
+    """One store's pass 1: its samples' slice rows ``d_rows`` int8 [n, RS]
+    laid out planar for the store's width N4 (zero-padded to 4 N4 rows and
+    to ``C`` columns) and sent to its device, then kernel B1 -> f64 exact
+    integers [M, C] on the store's device."""
+    N4 = packed.shape[1]
+    d4 = d_rows.new_zeros(4 * N4, C)
+    d4[:d_rows.shape[0], :d_rows.shape[1]] = d_rows
+    return grm_kernel.plane_dot_fwd(packed, d4.to(packed.device)
+                                    .view(4, N4, C))
+
+
+def t_rows(out4: torch.Tensor, n: int) -> torch.Tensor:
+    """One store's pass-2 result of kernel B2, f64 [4, N4, C] in planar
+    order, as its first ``n`` samples' rows [n, C] in natural order (a
+    view: plane p holds samples p N4 .. p N4 + N4 - 1)."""
+    return out4.view(-1, out4.shape[-1])[:n]
+
+
+def sharded_product(stores, af, inv, miss: MissingPairs,
+                    b: torch.Tensor) -> torch.Tensor:
+    """GRM @ b over a store kept as contiguous sample ranges.
+
+    ``stores`` lists ``(uint8 [M, store_width(n)] store, n)`` per range, in
+    sample order, each on its own device; ``af``, ``inv``, ``miss`` and
+    ``b`` (f64 [N] or [N, R]) lie on the lead device, which takes every
+    step that spans all samples: the slices of ``b`` (one scale over all
+    N), the sum of the ranges' B1 partials, the f64 recombinations and the
+    missing-pair corrections.  Kernels B1 and B2 run once per range on its
+    device, every range launched before any result is read back.  Their
+    integers are exactly those of one store, so the product does not depend
+    on the split, bit for bit.  One range is the operator's own product.
 
     The algebra of the JAX package's ``_packed2_grm_matvec`` with
-    ``impl="pallas"`` on a store of any width N4 >= ceil(N/4): kernel B1
-    takes the slices of ``b`` (padded to 4 N4 samples and to a multiple of 128 columns), kernel B2 the slices of the
-    weighted per-variant vectors; both results are exact integers,
-    recombined with the slice weights in f64.  The missing-pair
-    corrections are ``index_add_`` in f64 (on a CUDA device through f64
-    atomics, so they may differ in the last bits from run to run)."""
+    ``impl="pallas"``: kernel B1 takes the slices of ``b``, kernel B2 the
+    slices of the weighted per-variant vectors; both results are exact
+    integers, recombined with the slice weights in f64.  The missing-pair
+    corrections are segment sums over the pair lists sorted at build time
+    (:class:`MissingPairs`): deterministic on a card, and equal to the
+    ``index_add_`` form on the CPU bit for bit."""
     squeeze = b.dim() == 1
     B = (b[:, None] if squeeze else b).to(torch.float64)
-    M, N4 = packed.shape
-    Npad = 4 * N4
+    lead = B.device
+    M = af.shape[0]
     N, R = B.shape
     S = N_SLICES
     RS = R * S
     Cpad = kernel_cols(R)
 
     # pass 1: cv = Cm @ b (padded samples meet zero slice rows)
-    Bp = torch.zeros(Npad, R, dtype=torch.float64, device=B.device)
-    Bp[:N] = B
-    d, scale = _slice_i8(Bp, S)                       # [Npad, R, S]
-    d4 = _pad_cols(d.reshape(Npad, RS), Cpad).view(4, N4, Cpad)
-    acc = grm_kernel.plane_dot_fwd(packed, d4)[:, :RS]
-    cv = torch.sum(acc.reshape(M, R, S) * _slice_weights(scale, S), dim=-1)
+    d, scale = _slice_i8(B, S)                        # [N, R, S]
+    d = d.reshape(N, RS)
+    parts, n0 = [], 0
+    for packed, n in stores:
+        parts.append(fwd_partial(packed, d[n0:n0 + n], Cpad))
+        n0 += n
+    acc = parts[0].to(lead)
+    for p in parts[1:]:
+        acc = acc + p.to(lead)          # exact: integers below 2^53
+    cv = torch.sum(acc[:, :RS].reshape(M, R, S) * _slice_weights(scale, S),
+                   dim=-1)
 
-    corr1 = torch.zeros(M, R, dtype=torch.float64, device=B.device)
-    corr1.index_add_(0, miss_var, B[miss_samp])
-    mv = torch.sum(B, dim=0)[None, :] - corr1
+    mv = torch.sum(B, dim=0)[None, :] - miss.per_variant(B)
     gv = inv[:, None] * (cv - 2.0 * af[:, None] * mv)   # [M, R]
 
     # pass 2: out = Cm' w1 - (sum(w2) - corr2), natural sample order
@@ -316,12 +459,23 @@ def packed2_grm_matvec(packed, af, inv, miss_var, miss_samp,
     w2 = 2.0 * af[:, None] * inv[:, None] * gv
     d2, scale2 = _slice_i8(w1, S)                      # [M, R, S]
     dm = _pad_cols(d2.reshape(M, RS), Cpad)
-    acc4 = grm_kernel.plane_dot_t(packed, dm)[:, :, :RS]
-    pl4 = torch.sum(acc4.reshape(4, N4, R, S) * _slice_weights(scale2, S)[None],
-                    dim=-1)
-    out = pl4.reshape(Npad, R)[:N]
-
-    corr2 = torch.zeros(N, R, dtype=torch.float64, device=B.device)
-    corr2.index_add_(0, miss_samp, w2[miss_var])
-    out = (out - (torch.sum(w2, dim=0)[None, :] - corr2)) / M
+    parts = [grm_kernel.plane_dot_t(packed, dm.to(packed.device))
+             for packed, _n in stores]
+    rows = [t_rows(p, n).to(lead) for p, (_s, n) in zip(parts, stores)]
+    acc4 = rows[0] if len(rows) == 1 else torch.cat(rows)
+    out = torch.sum(acc4[:, :RS].reshape(N, R, S)
+                    * _slice_weights(scale2, S), dim=-1)
+    out = (out - (torch.sum(w2, dim=0)[None, :] - miss.per_sample(w2))) / M
     return out[:, 0] if squeeze else out
+
+
+def packed2_grm_matvec(packed, af, inv, miss_var, miss_samp,
+                       b: torch.Tensor) -> torch.Tensor:
+    """GRM @ b from one 2-bit store and its missing-pair lists (any order);
+    b [N] or [N, R] f64.  Sorts the lists for this one product
+    (:class:`MissingPairs`); an operator sorts them once
+    (:class:`Packed2GRM`).  See :func:`sharded_product`."""
+    N = b.shape[0]
+    return sharded_product([(packed, N)], af, inv,
+                           MissingPairs(miss_var, miss_samp,
+                                        packed.shape[0], N), b)

@@ -5,7 +5,12 @@ The counterpart of ``saigegds_tpu/ops/score.py``: the model state mirrors
 ``.init_nullmod`` (R/assoc_single.r:17-67); a binary trait's phase 1
 flags the variants with ``p_noadj <= spa.pval`` for
 :func:`spa_refine_binary` (src/saige_main.cpp:355-400), a quantitative
-trait's (:func:`score_stats_quant`) is final.  Every statistic is float64.
+trait's (:func:`score_stats_quant`) is final.  Every statistic is float64,
+and every sum over samples goes through ``spa.row_sum`` and every product
+with the covariates is elementwise, so a variant's statistics do not
+depend on the block or batch it is scored in (a block split over devices,
+or a scan split into variant ranges, gives the one-device table bit for
+bit).
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import numpy as np
 import torch
 
 from .special import pchisq1_sf, qnorm
-from .spa import saddle_prob_batch
+from .spa import row_sum, saddle_prob_batch
 
 _F64 = torch.float64
 
@@ -92,7 +97,7 @@ def prep_dosage(G: torch.Tensor):
     G = G.to(_F64)
     isnan = torch.isnan(G)
     num = (~isnan).sum(dim=1).to(_F64)   # exact; keeps the algebra in f64
-    ac = torch.where(isnan, 0.0, G).sum(dim=1)
+    ac = row_sum(torch.where(isnan, 0.0, G))
     af = ac / (2.0 * num)
     mean = ac / num
     g = torch.where(isnan, mean[:, None], G)
@@ -110,9 +115,15 @@ def _valid_mask(params: ScanParams, num, maf, mac, miss):
 
 
 def _adjusted_genotype(model: ScanModel, g):
-    """coeff = XV @ g; g_tilde = g - XXVX_inv @ coeff."""
-    coeff = g @ model.XV.T                     # [B, K]
-    return g - coeff @ model.XXVX_inv.T        # [B, N]
+    """coeff = XV @ g; g_tilde = g - XXVX_inv @ coeff, by row sums and
+    elementwise products (a matrix product's blocking, and so its sums,
+    may change with the row count)."""
+    K = model.XV.shape[0]
+    coeff = [row_sum(g * model.XV[k][None, :]) for k in range(K)]   # [B]
+    adj = coeff[0][:, None] * model.XXVX_inv[:, 0][None, :]
+    for k in range(1, K):
+        adj = adj + coeff[k][:, None] * model.XXVX_inv[:, k][None, :]
+    return g - adj                             # [B, N]
 
 
 def score_stats_binary(model: ScanModel, params: ScanParams,
@@ -122,8 +133,8 @@ def score_stats_binary(model: ScanModel, params: ScanParams,
     g, af, ac, num, mac, maf, miss, flip = prep_dosage(G)
     valid = _valid_mask(params, num, maf, mac, miss)
     g_tilde = _adjusted_genotype(model, g)
-    S = torch.sum(model.y_mu[None, :] * g_tilde, dim=1)
-    var = torch.sum(model.mu2[None, :] * g_tilde * g_tilde, dim=1)
+    S = row_sum(model.y_mu[None, :] * g_tilde)
+    var = row_sum(model.mu2[None, :] * g_tilde * g_tilde)
     return binary_stats(model, params, valid, af, mac, num, flip, S, var)
 
 
@@ -150,8 +161,8 @@ def score_stats_quant(model: ScanModel, params: ScanParams,
     g, af, ac, num, mac, maf, miss, flip = prep_dosage(G)
     valid = _valid_mask(params, num, maf, mac, miss)
     g_tilde = _adjusted_genotype(model, g)
-    S = torch.sum(model.y_mu[None, :] * g_tilde, dim=1)
-    var2 = torch.sum(g_tilde * g_tilde, dim=1)
+    S = row_sum(model.y_mu[None, :] * g_tilde)
+    var2 = row_sum(g_tilde * g_tilde)
     return quant_stats(model, valid, af, mac, num, flip, S, var2)
 
 
@@ -188,9 +199,11 @@ def spa_refine_binary(model: ScanModel, G: torch.Tensor, cap: int = 0,
     G: [Bs, N] raw dosages (NaN = missing) of variants that passed filters
     and had p_noadj <= spa.pval — or, with ``packed_n`` = N, planar 2-bit
     packed uint8 [Bs, ceil(N/4)] codes decoded here.  ``cap`` > 0 runs the
-    CGF over the top-``cap`` nonzero lanes of each variant only (exact
+    CGF over ``cap`` lanes holding each variant's nonzero lanes (exact
     when cap >= the batch's largest nonzero count, which the caller
-    guarantees).  Returns (pval, converged, beta, se).
+    guarantees).  The compaction keeps a variant's nonzero lanes in sample
+    order, zero-padded to ``cap``, so its sums do not depend on the other
+    variants of the batch.  Returns (pval, converged, beta, se).
     """
     if packed_n:
         G = unpack_codes_2bit_f64(G, packed_n)
@@ -198,9 +211,9 @@ def spa_refine_binary(model: ScanModel, G: torch.Tensor, cap: int = 0,
     g_tilde = _adjusted_genotype(model, g)
     ac2 = torch.where(flip, 2.0 * num - ac, ac)   # minor allele count
     g_norm = g_tilde / torch.sqrt(ac2)[:, None]
-    q = torch.sum(model.y[None, :] * g_norm, dim=1)
-    m1 = torch.sum(model.mu[None, :] * g_norm, dim=1)
-    var2 = torch.sum(model.mu2[None, :] * g_norm * g_norm, dim=1)
+    q = row_sum(model.y[None, :] * g_norm)
+    m1 = row_sum(model.mu[None, :] * g_norm)
+    var2 = row_sum(model.mu2[None, :] * g_norm * g_norm)
     var1 = var2 * variant_var_ratio(model, ac2)
     Tstat = q - m1
     qtilde = Tstat / torch.sqrt(var1) * torch.sqrt(var2) + m1
@@ -213,18 +226,22 @@ def spa_refine_binary(model: ScanModel, G: torch.Tensor, cap: int = 0,
     gn_ = torch.where(live[:, None], g_norm, 0.0)
     if cap and cap < G.shape[1]:
         # rare-variant compaction (Saddle_Prob_Fast's nonzero-index
-        # gather, src/SPATest.cpp:299-374): the CGF loops run over the
-        # top-`cap` nonzero lanes only
-        keys = torch.where(nzmask, torch.abs(gn_), 0.0).to(torch.float32)
-        idx = torch.topk(keys, cap, dim=1).indices              # [Bs, cap]
-        gl = torch.gather(gn_, 1, idx)
-        ml = torch.gather(nzmask, 1, idx)
+        # gather, src/SPATest.cpp:299-374): the CGF loops run over each
+        # variant's nonzero lanes only, `cap` wide
+        Bs, N = nzmask.shape
+        slot = torch.where(nzmask, torch.cumsum(nzmask, dim=1) - 1, cap)
+        idx = torch.zeros(Bs, cap + 1, dtype=torch.int64, device=G.device)
+        idx.scatter_(1, slot, torch.arange(N, device=G.device).expand(Bs, N))
+        idx = idx[:, :cap]               # nonzero lanes first, in order
+        ml = torch.arange(cap, device=G.device)[None, :] \
+            < nzmask.sum(dim=1)[:, None]
+        gl = torch.where(ml, torch.gather(gn_, 1, idx), 0.0)
         mul = model.mu[idx]
         # range bounds must still use the FULL vector
         pval, conv = saddle_prob_batch(
             q_, m1_, v2_, gl, mul, ml, cutoff=2.0,
-            g_bounds=(torch.where(gn_ > 0, gn_, 0.0).sum(dim=1),
-                      torch.where(gn_ < 0, gn_, 0.0).sum(dim=1)))
+            g_bounds=(row_sum(torch.where(gn_ > 0, gn_, 0.0)),
+                      row_sum(torch.where(gn_ < 0, gn_, 0.0))))
     else:
         pval, conv = saddle_prob_batch(
             q_, m1_, v2_, gn_, model.mu, nzmask, cutoff=2.0)

@@ -142,6 +142,18 @@ def _contract(pm: PackedScanModel, payload) -> torch.Tensor:
     return indicator_dot_2bit(payload, pm.vs4)
 
 
+def _dot_last(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``sum_k a[..., k] * w[..., k]`` (broadcast), added in k order by
+    elementwise operations alone, so that a variant's result does not
+    depend on how many rows its block holds (a library's matrix product
+    may block, and so sum, differently at another row count): a block split
+    over devices scores bit for bit as the whole block does."""
+    out = a[..., 0] * w[..., 0]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., k] * w[..., k]
+    return out
+
+
 def _packed_phase1(pm: PackedScanModel, params: ScanParams, payload):
     """Contraction + per-variant moment algebra.
 
@@ -151,6 +163,9 @@ def _packed_phase1(pm: PackedScanModel, params: ScanParams, payload):
     or the gap-coded ``(entries, row_ptr)`` stream of
     ``ops/sparse_codes``.  Padded samples beyond N contribute nothing
     because their ``vs4`` rows are zero; all-missing rows come out invalid.
+    Every step after the contraction is per variant and elementwise
+    (:func:`_dot_last`), so a variant's statistics do not depend on its
+    block's row count.
     """
     N = pm.V.shape[1]               # true sample count
     K = pm.n_cov
@@ -159,7 +174,7 @@ def _packed_phase1(pm: PackedScanModel, params: ScanParams, payload):
     Y3 = _contract(pm, payload)                          # f64 [B, 3, Cpad]
     B = Y3.shape[0]
     Y3 = Y3[:, :, :R * N_SLICES].reshape(B, 3, R, N_SLICES)
-    Y3 = torch.einsum("bgrs,rs->bgr", Y3, pm.wts)
+    Y3 = _dot_last(Y3, pm.wts)                           # [B, 3, R]
     Y0, Ym, Y2 = Y3[:, 0], Y3[:, 1], Y3[:, 2]
 
     ac = Y0[:, 0]
@@ -186,8 +201,8 @@ def _packed_phase1(pm: PackedScanModel, params: ScanParams, payload):
     tau_c = t / s                                        # 0 or -2
 
     # S = r' L(g) = s*[ (a1 - wr.u1) + mean*(a2 - wr.u2) ] + t*(sum_r - wr.u3)
-    wr_u1 = u1 @ pm.wr
-    wr_u2 = u2 @ pm.wr
+    wr_u1 = _dot_last(u1, pm.wr)
+    wr_u2 = _dot_last(u2, pm.wr)
     wr_u3 = torch.dot(pm.u3, pm.wr)
     S = s * ((a1 - wr_u1) + mean * (a2 - wr_u2)) + t * (pm.sum_r - wr_u3)
 
@@ -196,8 +211,8 @@ def _packed_phase1(pm: PackedScanModel, params: ScanParams, payload):
     Wq2 = (b3 + 2.0 * bg2) + mean**2 * b2 + tau_c**2 * pm.sum_w \
         + 2.0 * tau_c * b3 + 2.0 * tau_c * mean * b2
     XWq = v1 + mean[:, None] * v2 + tau_c[:, None] * pm.v3[None, :]
-    var = Wq2 - 2.0 * torch.sum(c * XWq, dim=1) \
-        + torch.sum(c * (c @ pm.XWX.T), dim=1)
+    var = Wq2 - 2.0 * _dot_last(c, XWq) \
+        + _dot_last(c, _dot_last(c[:, None, :], pm.XWX[None]))
 
     return dict(valid=valid, af=af, mac=mac, num=num, flip=flip,
                 S=S, var=var)

@@ -19,14 +19,46 @@ Semantics reproduced exactly (they are part of the output contract):
 * std-dev cutoff (initial 2.0 in the scan) with doubling escalation when
   ``p_noadj / p_spa > 1000`` (``src/SPATest.cpp:286-290``), in closed form
   (``_resolve_cutoff``).
+
+Every sum over samples goes through :func:`row_sum`, so a variant's
+p-value does not depend on the batch it is refined in.
 """
 
 import torch
+import torch.nn.functional as F
 
 from .special import pchisq1_sf, pnorm_sf
 
 _ROOT_TOL = torch.finfo(torch.float64).eps ** 0.25
 _MAX_ITER = 1000
+SUM_CHUNK = 32      # columns per stage of row_sum
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sums over the last axis of ``x`` [..., L] whose bits depend on a
+    row's own values alone, not on how many rows are summed at once.
+
+    A plain reduction over a long axis picks its threads per row, and may
+    split a row over thread blocks, by the number of rows (on a card), so
+    a variant's sum could change with the batch it lies in.  Here the rows
+    reduce in stages of exactly SUM_CHUNK columns (zero-padded), a width
+    that a reduction spreads over the same threads at any row count, on
+    the CPU as on a card; zeros appended to a row leave its sum as it
+    is."""
+    while True:
+        pad = (-x.shape[-1]) % SUM_CHUNK or (SUM_CHUNK if x.shape[-1] == 0
+                                              else 0)
+        if pad:
+            x = F.pad(x, (0, pad))
+        if x.shape[-1] == SUM_CHUNK:
+            return x.sum(dim=-1)
+        x = x.reshape(*x.shape[:-1], -1, SUM_CHUNK).sum(dim=-1)
+
+
+def pad_lanes(x: torch.Tensor, L: int, value=0) -> torch.Tensor:
+    """``x`` [B, n] padded on its last axis to ``L`` lanes."""
+    return x if x.shape[-1] == L else F.pad(x, (0, L - x.shape[-1]),
+                                            value=value)
 
 
 def _cgf_terms(t, g, mu, mask):
@@ -40,15 +72,15 @@ def _cgf_terms(t, g, mu, mask):
     # arithmetic (src/SPATest.cpp:42-53) including its overflow: g t past
     # ~709 drives exp to inf, K to inf, and get_saddle_prob to 0, which
     # the caller reports as pval_noadj + converged=False
-    K0 = torch.where(mask, torch.log(1.0 - mu + mu * torch.exp(gt)),
-                     0.0).sum(dim=1)
+    K0 = row_sum(torch.where(mask, torch.log(1.0 - mu + mu * torch.exp(gt)),
+                             0.0))
     # mu g / ((1-mu) exp(-g t) + mu)
     e_neg = torch.exp(-gt)
     denom = (1.0 - mu) * e_neg + mu
-    K1 = torch.where(mask, mu * g / denom, 0.0).sum(dim=1)
+    K1 = row_sum(torch.where(mask, mu * g / denom, 0.0))
     # (1-mu) mu g^2 exp(-g t) / ((1-mu) exp(-g t) + mu)^2, non-finite skipped
     k2_raw = (1.0 - mu) * mu * g * g * e_neg / (denom * denom)
-    K2 = torch.where(mask & torch.isfinite(k2_raw), k2_raw, 0.0).sum(dim=1)
+    K2 = row_sum(torch.where(mask & torch.isfinite(k2_raw), k2_raw, 0.0))
     return K0, K1, K2
 
 
@@ -148,20 +180,24 @@ def saddle_prob_batch(q, m1, var2, g, mu, mask, cutoff=2.0, g_bounds=None,
     """
     if mu.dim() == 1:
         mu = mu[None, :].expand(g.shape)
+    # lanes padded once to a multiple of SUM_CHUNK (masked out), so that
+    # no sum of the Newton loop pads again
+    L = -(-g.shape[1] // SUM_CHUNK) * SUM_CHUNK
+    g, mu, mask = pad_lanes(g, L), pad_lanes(mu, L), pad_lanes(mask, L)
     s = q - m1
     qinv = m1 - s
     pval_noadj = pchisq1_sf(s * s / var2)
 
     gm = torch.where(mask, g, 0.0)     # masking established here once
-    NAmu = m1 - torch.sum(gm * mu, dim=1)
-    NAsigma = var2 - torch.sum(gm * gm * mu * (1.0 - mu), dim=1)
+    NAmu = m1 - row_sum(gm * mu)
+    NAsigma = var2 - row_sum(gm * gm * mu * (1.0 - mu))
     # range bounds use the FULL adjusted genotype vector, not only the
     # exact-CGF subset (reference src/SPATest.cpp:325-331 sums over n_g)
     if g_bounds is not None:
         g_pos, g_neg = g_bounds
     else:
-        g_pos = torch.where(g > 0, g, 0.0).sum(dim=1)
-        g_neg = torch.where(g < 0, g, 0.0).sum(dim=1)
+        g_pos = row_sum(torch.where(g > 0, g, 0.0))
+        g_neg = row_sum(torch.where(g < 0, g, 0.0))
 
     root1, conv1 = _getroot_K1(q, g, mu, mask, NAmu, NAsigma, g_pos, g_neg)
     root2, conv2 = _getroot_K1(qinv, g, mu, mask, NAmu, NAsigma, g_pos,

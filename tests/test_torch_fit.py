@@ -181,11 +181,21 @@ def test_factor_covariate_and_alignment_match_jax(data):
 
 
 @pytest.mark.parametrize("cfg", ["mesh"])
-def test_not_ported_raises(data, cfg):
+def test_not_ported_raises(data, fits, cfg):
+    """``mesh=`` is ported now (``parallel/mesh.py``): a one-shard mesh no
+    longer raises, and fits exactly as the unsharded operator does."""
+    from saigegds_tpu_torch.parallel.mesh import make_mesh
     gds, cols, _ = data
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sgt.fit_null_glmm(FORMULA, cols, gds, sgt.NullModelConfig(),
-                          device="cpu", mesh=object())
+    _, tm, inst = fits
+    got_inst = {}
+    got = sgt.fit_null_glmm(FORMULA, cols, gds, sgt.NullModelConfig(),
+                            instrument=got_inst, device="cpu",
+                            mesh=make_mesh(devices=["cpu"]))
+    for f in ("tau", "coefficients", "fitted_values"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(tm, f))
+    np.testing.assert_array_equal(got.var_ratio["ratio"],
+                                  tm.var_ratio["ratio"])
+    assert got_inst["matvecs"] == inst["matvecs"]
 
 
 def test_device_is_required(data):

@@ -341,7 +341,7 @@ def test_validation_and_not_ported(data, tmp_path):
         fit(["y0 ~ x1", "y1 ~ x1"], model_savefn=str(tmp_path / "m.npz"))
     with pytest.raises(ValueError, match="Invalid trait type"):
         fit(["q0 ~ x1"], config=sgt.NullModelConfig(trait_type="poisson"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="takes no mesh"):
         fit(["y0 ~ x1"], mesh=object())
     with pytest.raises(TypeError):
         sgt.fit_null_glmm_multi(["y0 ~ x1"], cols, gds)

@@ -8,7 +8,9 @@
   ACAT-O over DS units, fits with ``checkpoint=`` and
   ``var_ratio_mac_cat=``, and reads and writes ``.rds``/``.rda`` models
   and tables; it runs the PheWAS fit and scan, GxG and the command line's
-  ``fit`` and ``scan`` (``python -m saigegds_tpu_torch``); and it loads no
+  ``fit`` and ``scan`` (``python -m saigegds_tpu_torch``); it imports
+  ``parallel/`` and fits and scans over a mesh of CPU shards and through
+  the variant-range shard API; and it loads no
   ``saigegds_tpu`` module on the way (``saigegds_tpu/__init__.py`` imports
   jax, so the port copies the framework-free host layers instead).
 * Those copies stay byte-identical to their originals, so a fix to one is
@@ -287,6 +289,49 @@ print("OK")
 """
 
 
+_MESH_WITHOUT_JAX_OR_PANDAS = r"""
+import sys
+sys.modules["jax"] = None          # any import of jax or pandas now raises
+sys.modules["pandas"] = None
+import numpy as np
+import saigegds_tpu_torch as sg
+from saigegds_tpu_torch.io.gds_write import write_seqarray_gds
+from saigegds_tpu_torch.parallel import distributed, mesh
+from saigegds_tpu_torch.parallel.distributed import assoc_spa_sharded, \
+    init_distributed, merge_shards
+
+rng = np.random.default_rng(6)
+N, M = 241, 90
+codes = rng.binomial(2, rng.uniform(0.1, 0.5, (M, 1)), size=(M, N))
+codes = codes.astype(np.int8)
+codes[rng.random((M, N)) < 0.01] = 3
+path = sys.argv[1]
+write_seqarray_gds(path, codes)
+g = np.where(codes == 3, 0, codes).T @ rng.normal(size=M) * 0.15
+data = {"sample.id": np.arange(1, N + 1), "x1": rng.normal(size=N),
+        "y": (rng.random(N) < 1 / (1 + np.exp(1 - g))) * 1.0}
+shards = mesh.make_mesh(devices=["cpu"] * 3)
+one = sg.fit_null_glmm("y ~ x1", data, path, device="cpu")
+model = sg.fit_null_glmm("y ~ x1", data, path, device="cpu", mesh=shards)
+assert np.array_equal(model.tau, one.tau)
+cfg = sg.ScanConfig(block_size=32, mac=1.0)
+tab = sg.assoc_spa(path, model, cfg, device="cpu", mesh=shards)
+want = sg.assoc_spa(path, model, cfg, device="cpu")
+assert all(np.array_equal(tab[c], want[c]) for c in want)
+assert init_distributed() == (0, 1)
+for pid in range(2):
+    assoc_spa_sharded(path, model, path + "_s", cfg, process_id=pid,
+                      process_count=2, device="cpu")
+merged = merge_shards(path + "_s")
+assert all(np.array_equal(merged[c], want[c]) for c in want)
+bad = [m for m in sys.modules
+       if m == "saigegds_tpu" or m.startswith("saigegds_tpu.")
+       or (m.startswith(("jax", "pandas")) and sys.modules[m] is not None)]
+assert not bad, bad
+print("OK")
+"""
+
+
 def _run(code: str, tmp_path):
     # one intra-op thread: the scripts' tensors are small, and parallel
     # test workers share the cores
@@ -335,6 +380,10 @@ def test_dosages_and_r_files_without_jax_or_pandas(tmp_path):
 
 def test_phewas_gxg_cli_without_jax_or_pandas(tmp_path):
     _run(_PHEWAS_GXG_CLI_WITHOUT_JAX_OR_PANDAS, tmp_path)
+
+
+def test_mesh_and_shards_without_jax_or_pandas(tmp_path):
+    _run(_MESH_WITHOUT_JAX_OR_PANDAS, tmp_path)
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

@@ -190,3 +190,96 @@ def test_dense_oracle_matches_jax_and_packed(grms):
     got = dense.matvec(torch.from_numpy(b)).numpy()
     _close(got, np.asarray(jd.matvec(jnp.asarray(b))), RTOL)
     _close(got, tg.matvec(torch.from_numpy(b)).numpy(), 1e-12)
+
+
+def _index_add_corrections(mv, ms, B, W, M, N):
+    """The missing-pair corrections as ``index_add_`` over the lists
+    (the product's form before they became segment sums)."""
+    c1 = torch.zeros(M, B.shape[1], dtype=torch.float64)
+    c1.index_add_(0, mv, B[ms])
+    c2 = torch.zeros(N, W.shape[1], dtype=torch.float64)
+    c2.index_add_(0, ms, W[mv])
+    return c1, c2
+
+
+@pytest.mark.parametrize("R", [1, 30])
+@pytest.mark.parametrize("order", ["sorted", "shuffled", "none"])
+def test_missing_pair_sums_equal_index_add(order, R):
+    """``MissingPairs``' segment sums (kept sorted once, added in list
+    order) equal ``index_add_`` over the original lists bit for bit, in
+    any list order; a list given out of order is sorted stably by
+    variant."""
+    from saigegds_tpu_torch.ops.packed_grm import MissingPairs
+    rng = np.random.default_rng(R)
+    M, N = 53, 1003
+    miss = rng.random((M, N)) < (0.0 if order == "none" else 0.04)
+    miss[7] = False                       # a variant without missing pairs
+    mv, ms = (torch.from_numpy(a) for a in np.nonzero(miss))
+    if order == "shuffled":
+        perm = torch.from_numpy(rng.permutation(len(mv)))
+        mv, ms = mv[perm], ms[perm]
+    B = torch.from_numpy(rng.normal(size=(N, R))
+                         * 10.0 ** rng.uniform(-5, 5, (N, 1)))
+    W = torch.from_numpy(rng.normal(size=(M, R)))
+    pairs = MissingPairs(mv, ms, M, N)
+    want1, want2 = _index_add_corrections(mv, ms, B, W, M, N)
+    assert torch.equal(pairs.per_variant(B), want1)
+    assert torch.equal(pairs.per_sample(W), want2)
+    assert len(pairs) == len(mv) and pairs.samp.dtype == torch.int32
+    order_v = torch.sort(mv, stable=True).indices
+    assert torch.equal(pairs.variants().long(), mv[order_v])
+    assert torch.equal(pairs.samp.long(), ms[order_v])
+    assert pairs.nbytes == 4 * (2 * len(mv) + M + N)
+
+
+def test_product_equals_index_add_form(grms):
+    """The whole product, against the same algebra with the corrections
+    by ``index_add_``: bit for bit on the CPU."""
+    from saigegds_tpu_torch.ops.packed_grm import N_SLICES, _pad_cols, \
+        _slice_i8, _slice_weights, kernel_cols
+    codes, _, _, _ = grms
+    g = build_packed2_grm(codes, device="cpu")
+    B = torch.from_numpy(np.random.default_rng(3).normal(size=(N_SAMPLES, 5)))
+    M, N4 = g.packed.shape
+    N, R = B.shape
+    S, RS, C = N_SLICES, 5 * N_SLICES, kernel_cols(5)
+    Bp = torch.zeros(4 * N4, R, dtype=torch.float64)
+    Bp[:N] = B
+    d, scale = _slice_i8(Bp, S)
+    acc = grm_kernel.plane_dot_fwd(
+        g.packed, _pad_cols(d.reshape(4 * N4, RS), C).view(4, N4, C))[:, :RS]
+    cv = torch.sum(acc.reshape(M, R, S) * _slice_weights(scale, S), dim=-1)
+    mv, ms = g.miss_var.long(), g.miss_samp.long()
+    corr1 = torch.zeros(M, R, dtype=torch.float64)
+    corr1.index_add_(0, mv, B[ms])
+    gv = g.inv[:, None] * (cv - 2.0 * g.af[:, None]
+                           * (torch.sum(B, dim=0)[None, :] - corr1))
+    w1 = g.inv[:, None] * gv
+    w2 = 2.0 * g.af[:, None] * g.inv[:, None] * gv
+    d2, scale2 = _slice_i8(w1, S)
+    acc4 = grm_kernel.plane_dot_t(g.packed, _pad_cols(d2.reshape(M, RS), C))
+    pl4 = torch.sum(acc4[:, :, :RS].reshape(4, N4, R, S)
+                    * _slice_weights(scale2, S)[None], dim=-1)
+    corr2 = torch.zeros(N, R, dtype=torch.float64)
+    corr2.index_add_(0, ms, w2[mv])
+    want = (pl4.reshape(4 * N4, R)[:N]
+            - (torch.sum(w2, dim=0)[None, :] - corr2)) / M
+    assert torch.equal(g.matvec(B), want)
+
+
+@pytest.mark.cuda
+def test_product_is_deterministic_on_the_card():
+    """The same product twice on the card, and over a two-shard mesh on
+    the same card: bit-equal (the corrections were f64 atomics before)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from saigegds_tpu_torch.parallel.mesh import ShardedGrmHandle, make_mesh
+    codes = _codes(9)
+    g = build_packed2_grm(codes, device="cuda")
+    b = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(N_SAMPLES, 30))).cuda()
+    first = g.matvec(b)
+    assert torch.equal(first, g.matvec(b))
+    h = ShardedGrmHandle(g, make_mesh(devices=["cuda:0", "cuda:0"]))
+    assert torch.equal(first, h.matvec(b))
+    torch.cuda.synchronize()

@@ -112,3 +112,36 @@ def test_special_functions_to_1e300():
                                np.asarray(jspecial.qnorm(p)), rtol=1e-13)
     assert float(tspecial.pchisq1_sf(torch.tensor(1370.0,
                                                   dtype=torch.float64))) > 0
+
+
+@pytest.mark.parametrize("L", [1, 5, 511, 512, 513, 1031, 5000])
+def test_row_sum_does_not_depend_on_the_batch(L):
+    """A row's ``row_sum`` is the same bits alone, among other rows, at
+    another place in the batch and with zero lanes appended."""
+    rng = np.random.default_rng(L)
+    x = torch.from_numpy(rng.normal(size=(7, L)) * 10.0 ** rng.uniform(
+        -8, 8, (7, L)))
+    alone = torch.stack([tspa.row_sum(x[i:i + 1])[0] for i in range(7)])
+    assert torch.equal(tspa.row_sum(x), alone)
+    assert torch.equal(tspa.row_sum(x.flip(0)), alone.flip(0))
+    assert torch.equal(tspa.row_sum(tspa.pad_lanes(x, L + 700)), alone)
+    np.testing.assert_allclose(alone.numpy(), x.numpy().sum(axis=1),
+                               rtol=1e-9)
+
+
+@pytest.mark.parametrize("cap", [0, 1024])
+def test_spa_refine_does_not_depend_on_the_batch(flagged, cap):
+    """Each flagged variant refined alone and within the whole flagged
+    batch (and the batch reversed): the same p-value, beta and SE bit for
+    bit, with and without the rare-variant compaction."""
+    codes, _, tsm = flagged
+    if cap:
+        codes = codes[_nnz(codes) <= cap]
+    G = torch.from_numpy(np.where(codes == 3, np.nan, codes).astype(
+        np.float64))
+    batch = tsc.spa_refine_binary(tsm, G, cap=cap)
+    rev = tsc.spa_refine_binary(tsm, G.flip(0), cap=cap)
+    for i in range(len(G)):
+        one = tsc.spa_refine_binary(tsm, G[i:i + 1], cap=cap)
+        for a, b, c in zip(one, batch, rev):
+            assert torch.equal(a[0], b[i]) and torch.equal(a[0], c[-1 - i])
