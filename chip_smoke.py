@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
 
+(Phase 20 runs this script again as ranks of a process group, with
+``--rank``, ``--world``, ``--init``, ``--role`` and ``--work``.)
+
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
@@ -79,12 +82,12 @@ and prints no result line):
    minor alleles, 40% rare, 10% low-frequency, 0.5% missing), 512 gene
    units of 8-64 contiguous variants (8 of them enriched in the fit's
    cases), read frame by frame as a file above the whole-matrix cache is;
-   ``assoc_acat_o(..., device="cuda")`` over the first 128 units (3 of
+   ``assoc_acat_o(..., device="cuda")`` over the first 64 units (2 of
    them enriched) with the default
    ``AggregateConfig``: every p-value in [0, 1], some rows through SPA, and
    B5 launched once per sparse payload, B4 once per sparse single-variant
    payload; ``assoc_burden`` and ``assoc_acat_v`` on the card over the
-   first 64 units equal ACAT-O's burden and ACAT-V columns within 1e-12;
+   first 32 units equal ACAT-O's burden and ACAT-V columns within 1e-12;
    the first 16 units on the CPU agree with the card within 1e-10 relative
    on every p-value column, with the same NaN pattern;
 10. ``assoc_burden`` of the quantitative model over phase 9's GDS and
@@ -156,7 +159,7 @@ and prints no result line):
    within 1e-10 of the 2-bit pass;
 18. GxG: ``gxg_spa`` with phase 4's GDS as the GRM (its first 4,096
    variants, by ``variant_id=``) and phase 7's GDS as the tested SNPs,
-   16 pairs of common variants, ``use_approx_tau=True`` from tau_G = 0.1
+   8 pairs of common variants, ``use_approx_tau=True`` from tau_G = 0.1
    (it must end positive): ``pair_batch=8``
    equals the serial path (with the GLM screen at 1.0) on the first 4
    pairs within 1e-10, every p-value in [0, 1], B1 and B2 once per
@@ -168,16 +171,32 @@ and prints no result line):
    CPU: within 1e-8, the same PCG iterations and products;
 19. the mesh: ``make_mesh(devices=["cuda:0"] * 2)``, two shards on the
    one card (this proves the sharded paths and measures what sharding
-   costs, not a speed-up): ``fit_null_glmm(..., mesh=)`` over phase 4's
-   GDS and data (the streamed ingest builds each shard's store as the
-   blocks arrive) equals phase 4's fit bit for bit, B1 and B2 launched
-   twice per product; its operator, and phase 4's wrapped into two shards,
-   give products at R = 1 and R = 30 equal to phase 4's operator's bit
-   for bit (ms sharded against unsharded printed); ``assoc_spa(...,
+   costs, not a speed-up): ``fit_null_glmm(..., mesh=)`` over phase 5's
+   small GDS and data (the streamed ingest builds each shard's store as
+   the blocks arrive) equals the one-store fit of the same streamed build
+   bit for bit, B1 and B2 launched twice per product; its operator gives
+   products at R = 1 and R = 30 equal to the one-store operator's, and
+   phase 4's operator wrapped into two shards equal to phase 4's
+   operator's, bit for bit (ms sharded against unsharded printed at full
+   width); ``assoc_spa(...,
    mesh=)`` over phase 7's GDS equals phase 7's table bit for bit, B3
    twice per block; ``assoc_spa_sharded`` as process 0 and 1 of 2, then
    ``merge_shards``, equals phase 7's table bit for bit;
-20. the command line: ``python -m saigegds_tpu_torch`` with ``--device
+20. the fit across two processes on the one card: this script again as
+   rank 0 and rank 1 of a gloo group (``--rank``; NCCL refuses two ranks
+   on one device, so the messages are staged through host memory), each
+   its own CUDA context with ``make_mesh(devices=["cuda:0"])`` and one
+   half of the store: phase 4's fit (streamed ingest, ``checkpoint=``)
+   equals phase 4's bit for bit on both ranks (tau, coefficients, fitted
+   values, variance ratios, products and PCG iterations), B1 and B2
+   launched once per product on each rank, the checkpoint files gone;
+   then products at R = 1 and 30 equal phase 4's operator's bit for bit
+   (ms by CUDA events on the lead, wire bytes and seconds per product);
+   each rank's store bytes, peak device memory and host RSS are printed
+   (the parent first hands its freed heap back to the system); then phase
+   5's small fit with a failure of the lead in outer iteration 2 ends both
+   ranks non-zero by the lead's abort, inside a time limit;
+21. the command line: ``python -m saigegds_tpu_torch`` with ``--device
    cuda`` in a process of its own for ``fit --pheno-cols``, ``scan`` with
    two ``--model``, ``gxg``, ``merge`` and ``info`` on the small fit's
    data; each output against the API's on the card (fits and GxG 1e-8,
@@ -189,6 +208,8 @@ GDS files live in ``_smoke/`` beside this script and are removed at the
 end.
 """
 
+import ctypes
+import gc
 import json
 import os
 import shutil
@@ -238,14 +259,14 @@ B4_SHAPES = [(37, 1031), (256, N_SAMPLES)]     # B, N at C = 128
 B5_ROWS = (256, 2048)   # rare-variant streams at N = N_SAMPLES
 N_AGG = 16_384          # variants of the aggregate phase's GDS
 N_UNITS = 512           # gene units of 8-64 contiguous variants
-N_UNITS_RUN = 128       # the units the aggregate tests run (the first)
+N_UNITS_RUN = 64        # the units the aggregate tests run (the first)
 ENRICHED_UNITS = (1, 40, 100, 170, 250, 330, 410, 490)
-AGG_SUB, AGG_CPU = 64, 16   # units of the burden/ACAT-V and CPU checks
+AGG_SUB, AGG_CPU = 32, 16   # units of the burden/ACAT-V and CPU checks
 RTOL_AGG = 1e-12        # burden and ACAT-V against ACAT-O on the card
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
 N_ALT = 1024            # phase 7's variants that the $dosage_alt scan reads
 PHEWAS_CASES = (10, 20, 50)   # case % of the PheWAS fit's extra phenotypes
-N_PAIRS, GXG_M = 16, 4096     # GxG pairs; GRM variants of its panel
+N_PAIRS, GXG_M = 8, 4096      # GxG pairs; GRM variants of its panel
 GXG_BATCH, GXG_SERIAL = 8, 4  # its pair batch; pairs also run serially
 GXG_SMALL_PAIRS = ((11, 12), (40, 90), (75, 150), (300, 500))
 # GxG's start of tau_G for the batched-against-serial check: from the
@@ -257,6 +278,10 @@ GXG_SMALL_PAIRS = ((11, 12), (40, 90), (75, 150), (300, 500))
 GXG_TAU_INIT = (0.0, 0.1)
 INT8_OPS_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 MESH_SHARDS = 2         # shards of the mesh phase, all on the one card
+DIST_RANKS = 2          # processes of the fit across processes, one card
+DIST_TIMEOUT_S = 900    # their group's timeout: no rank waits longer
+DIST_ABORT_S = 240      # the induced lead failure ends every rank by then
+DIST_RUNS = 5           # products timed per width across the processes
 
 
 def log(msg: str):
@@ -266,9 +291,20 @@ def log(msg: str):
 T_START = time.perf_counter()
 
 
+def host_rss_gib() -> float:
+    """This process's resident host memory now (``VmRSS``), GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
 def mark(phase: str):
-    """Log the start of a phase with the seconds since the script began."""
-    log(f"== {phase} (at {time.perf_counter() - T_START:.1f} s)")
+    """Log the start of a phase with the seconds since the script began
+    and this process's resident host memory."""
+    log(f"== {phase} (at {time.perf_counter() - T_START:.1f} s, host RSS "
+        f"{host_rss_gib():.2f} GiB)")
 
 
 def median_ms(fn, runs: int) -> float:
@@ -1937,12 +1973,15 @@ def gxg_phase(gds_fit: str, gds7: str, tab7: dict, data: dict, gds_s: str,
     return out
 
 
-def mesh_phase(gds_fit: str, data: dict, model, fit4: dict, op4,
-               gds7: str, tab7: dict, scan7: dict, work: str) -> dict:
+def mesh_phase(gds_s: str, data_s: dict, model, op4, gds7: str,
+               tab7: dict, scan7: dict, work: str) -> dict:
     """Phase 19: the sample-sharded fit and the variant-sharded scan over a
     mesh of two shards on the one card (``make_mesh(devices=["cuda:0"] *
     2)``): it proves the code path and measures what sharding costs on
-    one card, not a speed-up.  ``op4`` is phase 4's GRM operator."""
+    one card, not a speed-up.  The fit runs at the small fit's size (the
+    fit across processes of phase 20 keeps the full width); the products
+    run at both sizes.  ``model`` and ``op4`` are phase 4's model and GRM
+    operator."""
     import torch
     from saigegds_tpu_torch import ScanConfig
     from saigegds_tpu_torch.parallel.distributed import assoc_spa_sharded, \
@@ -1954,48 +1993,48 @@ def mesh_phase(gds_fit: str, data: dict, model, fit4: dict, op4,
         f"proves the sharded paths and measures what sharding costs on one "
         f"card, not a speed-up")
 
-    # the sample-sharded fit at full width, through from_streamed_blocks
-    torch.cuda.empty_cache()
+    # the sample-sharded fit, through from_streamed_blocks, against the
+    # one-store fit of the same streamed build
+    kept1, kept = {}, {}
+    model1, inst1 = fit(gds_s, data_s, "cuda", keep=kept1, stream_geno=True)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    kept = {}
-    model_m, inst_m = fit(gds_fit, data, "cuda", mesh=mesh, keep=kept,
+    model_m, inst_m = fit(gds_s, data_s, "cuda", mesh=mesh, keep=kept,
+                          stream_geno=True,
                           checkpoint=os.path.join(work, "ck_mesh"))
-    h = kept["grm"]
+    h, op_s = kept["grm"], kept1["grm"]
     if not isinstance(h, ShardedGrmHandle):
         raise AssertionError(f"the mesh fit built a {type(h).__name__}")
     expect_launches("the sharded fit", {
         "plane_dot_fwd": MESH_SHARDS * inst_m["matvecs"],
         "plane_dot_t": MESH_SHARDS * inst_m["matvecs"]})
-    same_fit("the sharded fit", model_m, inst_m, model, fit4)
+    same_fit("the sharded fit", model_m, inst_m, model1, inst1)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"sharded fit on the card: equal to phase 4's fit bit for bit (tau "
+    log(f"sharded fit on the card ({FIT_SMALL[0]} x {FIT_SMALL[1]}, "
+        f"streamed ingest): equal to the one-store fit bit for bit (tau "
         f"{model_m.tau.tolist()}, coefficients, fitted values, "
         f"{len(model_m.var_ratio['ratio'])} variance ratios; "
         f"{inst_m['outer_iterations']} outer, {inst_m['pcg_iterations']} PCG "
         f"iterations, {inst_m['matvecs']} products on both); "
-        f"{inst_m['wall_s']:.1f} s wall = ingest {inst_m['ingest_s']:.1f} + "
-        f"AI-REML {inst_m['aireml_s']:.1f} + variance ratio "
-        f"{inst_m['var_ratio_s']:.1f} s against phase 4's "
-        f"{fit4['wall_s']:.1f} = {fit4['ingest_s']:.1f} + "
-        f"{fit4['aireml_s']:.1f} + {fit4['var_ratio_s']:.1f} s; store bytes "
-        f"per shard {h.store_bytes} (phase 4's one store "
-        f"{op4.packed.numel()}); peak device memory {peak:.2f} GiB")
+        f"{inst_m['wall_s']:.1f} s wall against {inst1['wall_s']:.1f} s; "
+        f"store bytes per shard {h.store_bytes} (one store "
+        f"{op_s.packed.numel()}); peak device memory {peak:.2f} GiB")
     for k in ("af", "inv", "diag"):
-        if not torch.equal(getattr(h, k), getattr(op4, k)):
+        if not torch.equal(getattr(h, k), getattr(op_s, k)):
             raise AssertionError(f"the sharded build's {k} differs")
 
-    # the sharded product, both ways, against phase 4's operator
+    # the sharded product: the fit's streamed build, and phase 4's store
+    # wrapped into shards at full width
     wrapped = ShardedGrmHandle(op4, mesh)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     prod = {}
     for R in (1, PROFILE_COLS):
-        b = torch.randn(N_SAMPLES, R, dtype=torch.float64, device="cuda",
-                        generator=gen)
-        if R == 1:
-            b = b[:, 0]
-        want = op4.matvec(b)
-        for name, op in (("streamed", h), ("wrapped", wrapped)):
+        for name, op, one in (("streamed", h, op_s), ("wrapped", wrapped,
+                                                      op4)):
+            b = torch.randn(one.n_samples, R, dtype=torch.float64,
+                            device="cuda", generator=gen)
+            b = b[:, 0] if R == 1 else b
+            want = one.matvec(b)
             reset_launches()
             got = op.matvec(b)
             expect_launches(f"one sharded product ({name}, R = {R})", {
@@ -2003,14 +2042,15 @@ def mesh_phase(gds_fit: str, data: dict, model, fit4: dict, op4,
             if not torch.equal(got, want):
                 raise AssertionError(f"sharded product ({name}, R = {R}) "
                                      f"differs from the unsharded one")
-        prod[R] = dict(sharded_ms=median_ms(lambda: h.matvec(b), 3),
+        prod[R] = dict(sharded_ms=median_ms(lambda: wrapped.matvec(b), 3),
                        unsharded_ms=median_ms(lambda: op4.matvec(b), 3))
         log(f"GRM product at R = {R}: sharded ({MESH_SHARDS} shards, built "
-            f"streamed and wrapped) equal to the unsharded one bit for bit; "
+            f"streamed at the small size and wrapped at full width) equal "
+            f"to the unsharded one bit for bit; at full width "
             f"{prod[R]['sharded_ms']:.3f} ms sharded against "
             f"{prod[R]['unsharded_ms']:.3f} ms unsharded (median of 3, CUDA "
             f"events, one card)")
-    del wrapped, h, kept
+    del wrapped, h, kept, kept1
 
     # the variant-sharded scan of phase 7's GDS
     torch.cuda.reset_peak_memory_stats()
@@ -2050,8 +2090,276 @@ def mesh_phase(gds_fit: str, data: dict, model, fit4: dict, op4,
                 scan_vs=N_VARIANTS / wall)
 
 
+def run_ranks(work: str, role: str, timeout: float) -> tuple:
+    """Start this script as ranks 0 .. DIST_RANKS - 1 of one gloo group
+    (``--rank``, ``--role``; see :func:`dist_child`), each writing its
+    output to ``_smoke/dist_<role>_<rank>.log``; wait at most ``timeout``
+    seconds for all of them, kill any left, and return their exit codes
+    and logs."""
+    init = f"file://{os.path.join(work, 'rendezvous_' + role)}"
+    paths = [os.path.join(work, f"dist_{role}_{r}.log")
+             for r in range(DIST_RANKS)]
+    files = [open(path, "w") for path in paths]
+    procs = []
+    try:
+        for r, f in enumerate(files):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                 "--world", str(DIST_RANKS), "--init", init, "--role", role,
+                 "--work", work], stdout=f, stderr=subprocess.STDOUT,
+                cwd=ROOT))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"the ranks ({role}) did not end within "
+                                     f"{timeout} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    logs = []
+    for path in paths:
+        with open(path) as f:
+            logs.append(f.read())
+    return [p.returncode for p in procs], logs
+
+
+def dist_phase(work: str, data: dict, model, fit4: dict, op4, data_s: dict,
+               card: str):
+    """Phase 20: the fit across two processes on the one card.  Two ranks
+    of a gloo group (NCCL refuses two ranks on one device), each its own
+    CUDA context holding one half of the store: phase 4's fit, streamed
+    ingest and ``checkpoint=``, and products at R = 1 and 30, all bit for
+    bit against phase 4, with B1 and B2 once per product on each rank;
+    then phase 5's small fit, whose lead fails in outer iteration 2, which
+    must end both ranks non-zero.  ``op4`` is phase 4's GRM operator; the
+    ranks read ``fit.gds`` and ``fit_small.gds`` in ``work``."""
+    import torch
+
+    np.savez(os.path.join(work, "dist_data.npz"), **data)
+    np.savez(os.path.join(work, "dist_small.npz"), **data_s)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    bs, want = {}, {}
+    for R in (1, PROFILE_COLS):
+        b = torch.randn(N_SAMPLES, R, dtype=torch.float64, device="cuda",
+                        generator=gen)
+        b = b[:, 0] if R == 1 else b
+        want[R] = op4.matvec(b).cpu().numpy()
+        bs[f"b{R}"] = b.cpu().numpy()
+    np.savez(os.path.join(work, "dist_b.npz"), **bs)
+    torch.cuda.empty_cache()
+    # the ranks ingest phase 4's GDS at once on this host: hand the memory
+    # this process freed in earlier phases back to the system first, the
+    # heap that glibc's arenas keep (the threaded decode leaves it there)
+    # and the pinned upload buffers that PyTorch caches
+    rss = host_rss_gib()
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    trimmed = host_rss_gib()
+    torch._C._host_emptyCache()
+    log(f"host RSS before the ranks start: {rss:.2f} GiB, {trimmed:.2f} "
+        f"after malloc_trim, {host_rss_gib():.2f} after emptying the "
+        f"pinned-memory cache")
+
+    t0 = time.perf_counter()
+    codes, logs = run_ranks(work, "fit", DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for r, text in enumerate(logs):
+        for line in text.splitlines():
+            log(f"  [rank {r}] {line}")
+    if any(codes):
+        raise AssertionError(f"the fit across processes: exit codes {codes}")
+    res = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(work, f"dist_{r}.json")) as f:
+            res.append(json.load(f))
+    outs = [np.load(os.path.join(work, f"dist_{r}.npz"))
+            for r in range(DIST_RANKS)]
+    n = fit4["matvecs"]
+    for r, (got, arrs) in enumerate(zip(res, outs)):
+        for k in ("tau", "coefficients", "fitted_values",
+                  "linear_predictors"):
+            if not np.array_equal(arrs[k], getattr(model, k)):
+                raise AssertionError(f"rank {r}: {k} differs from phase "
+                                     f"4's fit")
+        for k in ("id", "ratio"):
+            if not np.array_equal(arrs["vr_" + k], model.var_ratio[k]):
+                raise AssertionError(f"rank {r}: variance-ratio {k} "
+                                     f"differs from phase 4's fit")
+        for k in ("outer_iterations", "pcg_iterations", "matvecs"):
+            if got["inst"][k] != fit4[k]:
+                raise AssertionError(f"rank {r}: {k} {got['inst'][k]} "
+                                     f"against phase 4's {fit4[k]}")
+        want_l = {"plane_dot_fwd": n, "plane_dot_t": n}
+        if {k: v for k, v in got["fit_launches"].items() if v} != want_l:
+            raise AssertionError(f"rank {r}: the fit's launches "
+                                 f"{got['fit_launches']}, expected {want_l}")
+        m = got["products"]
+        want_l = {"plane_dot_fwd": m, "plane_dot_t": m}
+        if {k: v for k, v in got["product_launches"].items() if v} \
+                != want_l:
+            raise AssertionError(f"rank {r}: the products' launches "
+                                 f"{got['product_launches']}, expected "
+                                 f"{want_l}")
+    if res[1]["products"] != res[0]["products"]:
+        raise AssertionError("rank 1 served another number of products")
+    for R in (1, PROFILE_COLS):
+        if not np.array_equal(outs[0][f"p{R}"], want[R]):
+            raise AssertionError(f"the product across processes at R = {R} "
+                                 f"differs from phase 4's operator's")
+    left = [f for f in os.listdir(work) if f.startswith("ck_dist")]
+    if left:
+        raise AssertionError(f"checkpoint files left: {left}")
+    lead, inst = res[0], res[0]["inst"]
+    log(f"{card}: the fit across {DIST_RANKS} processes on the one card "
+        f"(gloo, staged through host memory): every rank's model equal to "
+        f"phase 4's bit for bit (tau {model.tau.tolist()}, coefficients, "
+        f"fitted values, {len(model.var_ratio['ratio'])} variance ratios; "
+        f"{inst['outer_iterations']} outer, {inst['pcg_iterations']} PCG "
+        f"iterations, {n} products, B1 and B2 launched {n} times on each "
+        f"rank); checkpoint files removed; the ranks' wall {wall:.1f} s "
+        f"(process start included); the lead's fit "
+        f"{inst['wall_s']:.1f} s = ingest {inst['ingest_s']:.1f} + AI-REML "
+        f"{inst['aireml_s']:.1f} + variance ratio "
+        f"{inst['var_ratio_s']:.1f} s against phase 4's "
+        f"{fit4['wall_s']:.1f} = {fit4['ingest_s']:.1f} + "
+        f"{fit4['aireml_s']:.1f} + {fit4['var_ratio_s']:.1f} s; wire_s "
+        f"{inst['wire_s']:.3f} s, wire_bytes {inst['wire_bytes']} "
+        f"({inst['wire_bytes'] / n:.0f} per product); rank 1 ingest "
+        f"{res[1]['inst']['ingest_s']:.1f} s, serving "
+        f"{res[1]['inst']['serve_s']:.1f} s")
+    for R in (1, PROFILE_COLS):
+        pr = lead["product"][str(R)]
+        log(f"{card}: GRM product across {DIST_RANKS} processes at R = {R}: "
+            f"phase 4's bit for bit, B1 and B2 once per product on each "
+            f"rank; {pr['ms']:.3f} ms (median of {DIST_RUNS}, CUDA events "
+            f"on the lead), wire bytes per product {pr['wire_bytes']:.0f}, "
+            f"wire_s per product {pr['wire_s'] * 1e3:.3f} ms")
+    for r, got in enumerate(res):
+        log(f"{card}: rank {r}: store bytes {got['store_bytes']} (phase 4's "
+            f"one store {op4.packed.numel()}), peak device memory "
+            f"{got['peak_gib']:.2f} GiB (torch.cuda.max_memory_allocated), "
+            f"host RSS at its end {got['host_gib']:.2f} GiB")
+
+    t0 = time.perf_counter()
+    codes, logs = run_ranks(work, "abort", DIST_ABORT_S)
+    took = time.perf_counter() - t0
+    if not all(codes):
+        raise AssertionError(f"the induced failure: exit codes {codes}, "
+                             f"expected both non-zero")
+    for r, (text, marker) in enumerate(zip(logs, (
+            "induced failure of the lead", "the lead rank aborted the fit"))):
+        if marker not in text:
+            raise AssertionError(f"rank {r} did not end by the abort: "
+                                 f"{text[-2000:]}")
+    log(f"induced failure of the lead in outer iteration 2 of the small fit "
+        f"({FIT_SMALL[0]} x {FIT_SMALL[1]}) across {DIST_RANKS} processes: "
+        f"exit codes {codes}, rank 1 ended by the abort; {took:.1f} s "
+        f"(limit {DIST_ABORT_S} s, group timeout {DIST_TIMEOUT_S} s)")
+    return dict(wall=wall, inst=inst, products=lead["product"])
+
+
+def dist_child(argv: list) -> int:
+    """A rank of phase 20 (``--rank``, ``--world``, ``--init``,
+    ``--role``, ``--work``): role ``fit`` fits phase 4's data over a mesh
+    of this process's card and the other ranks', then takes (the lead) or
+    serves (the others) the products; role ``abort`` fits the small data,
+    and the lead fails in outer iteration 2.  Writes
+    ``dist_<rank>.json``/``.npz`` to ``--work``; never prints a result
+    line."""
+    import argparse
+    import torch
+    from saigegds_tpu_torch.models import fitnull
+    from saigegds_tpu_torch.parallel.distributed import init_distributed
+    from saigegds_tpu_torch.parallel.mesh import make_mesh
+
+    ap = argparse.ArgumentParser()
+    for k in ("--rank", "--world"):
+        ap.add_argument(k, type=int, required=True)
+    for k in ("--init", "--role", "--work"):
+        ap.add_argument(k, required=True)
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("a rank of the fit across processes needs a card")
+    init_distributed(a.init, a.world, a.rank, device="cuda",
+                     backend="gloo", timeout_s=DIST_TIMEOUT_S)
+    mesh = make_mesh(devices=["cuda:0"])
+    if not (mesh.spans and mesh.size == a.world):
+        raise AssertionError(f"the mesh {mesh} does not span the group")
+    lead = a.rank == 0
+    log(f"mesh {mesh}")
+
+    if a.role == "abort":
+        data_s = dict(np.load(os.path.join(a.work, "dist_small.npz")))
+        if lead:
+            real, calls = fitnull._fit_tau_binary, [0]
+
+            def failing(*args, **kw):
+                calls[0] += 1
+                if calls[0] == 2:
+                    raise RuntimeError("induced failure of the lead")
+                return real(*args, **kw)
+
+            fitnull._fit_tau_binary = failing
+        fit(os.path.join(a.work, "fit_small.gds"), data_s, "cuda:0",
+            mesh=mesh)
+        raise AssertionError("the fit with an induced failure returned")
+
+    data = dict(np.load(os.path.join(a.work, "dist_data.npz")))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    kept = {}
+    model, inst = fit(os.path.join(a.work, "fit.gds"), data, "cuda:0",
+                      mesh=mesh, keep=kept,
+                      checkpoint=os.path.join(a.work, "ck_dist"))
+    h = kept["grm"]
+    out = {k: getattr(model, k) for k in ("tau", "coefficients",
+                                          "fitted_values",
+                                          "linear_predictors")}
+    out.update({"vr_" + k: np.asarray(model.var_ratio[k])
+                for k in ("id", "ratio")})
+    res = dict(rank=a.rank, fit_launches=launches(),
+               inst={k: v for k, v in inst.items()
+                     if isinstance(v, (int, float))},
+               store_bytes=h.store_bytes)
+    log(f"fit: {json.dumps(res['inst'])}; launches "
+        f"{json.dumps(res['fit_launches'])}")
+    reset_launches()
+    if lead:
+        bs = np.load(os.path.join(a.work, "dist_b.npz"))
+        res["product"] = {}
+        for R in (1, PROFILE_COLS):
+            b = torch.from_numpy(bs[f"b{R}"]).to("cuda:0")
+            out[f"p{R}"] = h.matvec(b).cpu().numpy()
+            s0, b0 = h.wire.seconds, h.wire.bytes
+            ms = median_ms(lambda: h.matvec(b), DIST_RUNS)
+            res["product"][R] = dict(
+                ms=ms, wire_s=(h.wire.seconds - s0) / DIST_RUNS,
+                wire_bytes=(h.wire.bytes - b0) / DIST_RUNS)
+        h.wire.stop()
+        res["products"] = 2 * (1 + DIST_RUNS)
+    else:
+        res["products"] = h.serve()
+    res["product_launches"] = launches()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["host_gib"] = host_rss_gib()
+    log(f"products: {res['products']}, launches "
+        f"{json.dumps(res['product_launches'])}")
+    np.savez(os.path.join(a.work, f"dist_{a.rank}.npz"), **out)
+    with open(os.path.join(a.work, f"dist_{a.rank}.json"), "w") as f:
+        json.dump(res, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
 def cli_phase(work: str, gds_s: str, data_s: dict, card: str):
-    """Phase 19: ``python -m saigegds_tpu_torch`` with ``--device cuda``
+    """Phase 21: ``python -m saigegds_tpu_torch`` with ``--device cuda``
     in subprocesses: fit (--pheno-cols), scan (two --model), gxg, merge
     and info on the small fit's data, each output against the API's on
     the card."""
@@ -2427,11 +2735,16 @@ def main() -> int:
 
         # 19. the sample-sharded fit and the variant-sharded scan
         mark('19. the sample-sharded fit and the variant-sharded scan')
-        mesh_phase(gds_fit, data, model, fit4, kept4.pop("grm"), gds, tab7,
-                   scan7, work)
+        op4 = kept4.pop("grm")
+        mesh_phase(gds_s, data_s, model, op4, gds, tab7, scan7, work)
 
-        # 20. the command line
-        mark('20. the command line')
+        # 20. the fit across two processes on the one card
+        mark('20. the fit across two processes on the one card')
+        dist_phase(work, data, model, fit4, op4, data_s, card)
+        del op4
+
+        # 21. the command line
+        mark('21. the command line')
         cli_phase(work, gds_s, data_s, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2475,4 +2788,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dist_child(sys.argv[1:]) if len(sys.argv) > 1 else main())

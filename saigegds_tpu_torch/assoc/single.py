@@ -154,7 +154,10 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
     lead device ``device``) splits each block's variants over the mesh's
     devices, phase 1 of each part on its device against a copy of the
     model; SPA runs on the lead, and the table equals the one-device
-    table.  Returns the result table as an ordered dict of numpy columns.
+    table.  A mesh that spans processes raises ValueError: across
+    processes the scan runs on variant ranges
+    (``parallel/distributed.assoc_spa_sharded``), as the JAX package's
+    does.  Returns the result table as an ordered dict of numpy columns.
     """
     dev = _scan_device(device, mesh)
     model = NullModel.load(modobj)
@@ -177,9 +180,13 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
 
 def _scan_device(device, mesh) -> torch.device:
     """The scan's device: ``device``, which must be the lead of
-    ``mesh``."""
+    ``mesh``, a mesh of one process."""
     if mesh is None:
         return check_device(device)
+    if mesh.spans:
+        raise ValueError("a scan does not take a mesh that spans processes: "
+                         "scan variant ranges with assoc_spa_sharded, one "
+                         "range per process, and merge_shards")
     from ..parallel.mesh import check_lead
     return check_lead(mesh, device)
 

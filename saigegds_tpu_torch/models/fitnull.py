@@ -1005,8 +1005,23 @@ def fit_null_glmm(formula: str, data, gdsfile,
     ingest builds each range's store as the blocks arrive), for a GRM
     larger than one card; its lead device must be ``device``, and a 2-bit
     fit equals the unsharded one bit for bit (the dense oracle's products
-    sum f64 partials over the ranges, which reassociates).  The fit's
-    events
+    sum f64 partials over the ranges, which reassociates).
+
+    A mesh that spans processes (``make_mesh`` after
+    ``parallel/distributed.init_distributed``) needs this call on every
+    rank with the same arguments, ``device`` being the rank's own first
+    device of the mesh.  Rank 0 fits, and alone writes the checkpoints and
+    ``model_savefn``; every other rank selects the same GRM variants (the
+    filter and the down-sampling are deterministic), builds its ranges'
+    stores and serves the lead's products.  Every rank returns the lead's
+    model, equal to the one-process fit bit for bit.  The lead's
+    ``instrument`` also gets ``wire_s`` and ``wire_bytes`` (the products'
+    messages, ``distributed.Wire``); another rank's gets ``ingest_s``,
+    ``serve_s``, the products it served (``matvecs``,
+    ``product_widths``) and the lead's iteration counts.  A failure on the
+    lead makes every rank raise (the lead sends an abort); a failure on a
+    rank reaches the lead as an error at its next collective, and no rank
+    waits past the group's ``timeout_s``.  The fit's events
     (``utils/telemetry.py``: iterations, tau retries, trace escalations,
     variance-ratio markers) land in ``model.fit_log``.
     """
@@ -1019,7 +1034,35 @@ def fit_null_glmm(formula: str, data, gdsfile,
         dev = check_lead(mesh, dev)
     seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
     resp, covs = _parse_formula(formula)
+    args = (seq, data, cfg, resp, covs, variant_id, verbose, formula, dev)
+    if mesh is None or not mesh.spans:
+        return _fit_one(args, mesh, instrument, model_savefn)[0]
 
+    if cfg.grm_impl == "dense":      # every rank refuses, before any message
+        raise NotImplementedError("the dense GRM oracle does not span "
+                                  "processes: it is an f64 test oracle for "
+                                  "small N; use the 2-bit store")
+    from ..parallel.distributed import abort_group, share
+    if not mesh.is_lead:
+        return _serve_fit(args, mesh, instrument)
+    inst = {} if instrument is None else instrument
+    try:
+        model, grm = _fit_one(args, mesh, inst, model_savefn)
+    except BaseException:
+        abort_group(dev)
+        raise
+    inst.update(wire_s=grm.wire.seconds, wire_bytes=grm.wire.bytes)
+    grm.wire.stop()
+    return share((model, {k: inst[k] for k in _LEAD_COUNTS}), dev)[0]
+
+
+_LEAD_COUNTS = ("outer_iterations", "pcg_iterations")
+
+
+def _fit_one(args, mesh, instrument, model_savefn):
+    """The fit of :func:`fit_null_glmm` (``args``: its parsed arguments):
+    the model and the GRM operator."""
+    seq, data, cfg, resp, covs, variant_id, verbose, formula, dev = args
     t0 = time.perf_counter()
     prep = _prepare_fit(seq, data, cfg, resp, covs, variant_id, verbose,
                         formula, dev, mesh=mesh)
@@ -1052,6 +1095,27 @@ def fit_null_glmm(formula: str, data, gdsfile,
     clear_checkpoint(cfg)   # fit + variance ratio complete: drop the state
     if model_savefn:
         model.save(model_savefn)
+    return model, grm.op
+
+
+def _serve_fit(args, mesh, instrument):
+    """A rank other than the lead in :func:`fit_null_glmm` over a mesh
+    that spans processes: the same variant selection and this rank's
+    stores (no variance-ratio marker rows), then the lead's products until
+    it stops; returns the lead's model."""
+    from ..parallel.distributed import share
+    seq, data, cfg, resp, covs, variant_id, verbose, formula, dev = args
+    t0 = time.perf_counter()
+    grm = _prepare_fit(seq, data, cfg, resp, covs, variant_id, verbose,
+                       formula, dev, harvest=False, mesh=mesh)["grm"]
+    t1 = time.perf_counter()
+    grm.serve()
+    t2 = time.perf_counter()
+    model, counts = share(None, dev)
+    if instrument is not None:
+        instrument.update(ingest_s=t1 - t0, serve_s=t2 - t1,
+                          matvecs=grm.matvecs,
+                          product_widths=dict(grm.widths), **counts)
     return model
 
 

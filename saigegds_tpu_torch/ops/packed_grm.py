@@ -309,14 +309,11 @@ def build_packed2_grm(codes: np.ndarray, *, device) -> Packed2GRM:
                                   mv, ms, n_samples=N, device=device)
 
 
-def stream_moments(block_iter, n_samples: int, n_variants: int, store_rows):
-    """The host half of a streamed build: ``_variant_moments`` of each
-    ``(idx, int8 codes [b, N])`` block over all samples, while
-    ``store_rows(row0, codes)`` places the block's rows in the store(s).
-    Returns f64 af, inv, diag / M and the int64 missing-pair lists, all
-    numpy; raises unless the blocks hold ``n_variants`` rows."""
-    af_parts, inv_parts, miss_v, miss_s = [], [], [], []
-    diag = np.zeros(n_samples, np.float64)
+def place_rows(block_iter, n_variants: int, store_rows):
+    """Feed ``(idx, int8 codes [b, N])`` blocks to ``store_rows(row0,
+    codes)``, which places them in the store(s), and yield ``codes`` of
+    each block after it; raises unless the blocks hold ``n_variants`` rows
+    in all."""
     row0 = 0
     for _idx, codes in block_iter:
         codes = np.ascontiguousarray(codes, dtype=np.int8)
@@ -324,22 +321,36 @@ def stream_moments(block_iter, n_samples: int, n_variants: int, store_rows):
         if row0 + b > n_variants:
             raise ValueError(f"block iterator yielded more than "
                              f"n_variants={n_variants} rows")
+        store_rows(row0, codes)
+        yield codes
+        row0 += b
+    if row0 != n_variants:
+        raise ValueError(f"block iterator yielded {row0} rows, "
+                         f"n_variants={n_variants}")
+
+
+def stream_moments(block_iter, n_samples: int, n_variants: int, store_rows):
+    """The host half of a streamed build: ``_variant_moments`` of each
+    ``(idx, int8 codes [b, N])`` block over all samples, while
+    ``store_rows(row0, codes)`` places the block's rows in the store(s)
+    (:func:`place_rows`).  Returns f64 af, inv, diag / M and the int64
+    missing-pair lists, all numpy; raises unless the blocks hold
+    ``n_variants`` rows."""
+    af_parts, inv_parts, miss_v, miss_s = [], [], [], []
+    diag = np.zeros(n_samples, np.float64)
+    row0 = 0
+    for codes in place_rows(block_iter, n_variants, store_rows):
         af, inv, diag_part, mv, ms = _variant_moments(codes)
         diag += diag_part
         miss_v.append(mv.astype(np.int64) + row0)
         miss_s.append(ms.astype(np.int64))
         af_parts.append(af)
         inv_parts.append(inv)
-        store_rows(row0, codes)
-        row0 += b
-    M = row0
-    if M != n_variants:
-        raise ValueError(f"block iterator yielded {M} rows, "
-                         f"n_variants={n_variants}")
+        row0 += codes.shape[0]
     cat = lambda parts, dt: np.concatenate(parts) if parts else \
         np.empty(0, dt)
     return (cat(af_parts, np.float64), cat(inv_parts, np.float64),
-            diag / M, cat(miss_v, np.int64), cat(miss_s, np.int64))
+            diag / n_variants, cat(miss_v, np.int64), cat(miss_s, np.int64))
 
 
 def build_packed2_grm_streamed(block_iter, n_samples: int, n_variants: int,
@@ -408,9 +419,38 @@ def t_rows(out4: torch.Tensor, n: int) -> torch.Tensor:
     return out4.view(-1, out4.shape[-1])[:n]
 
 
+def ranges_fwd(stores, d_rows: torch.Tensor, C: int,
+               out: torch.device) -> torch.Tensor:
+    """Pass 1 over consecutive sample ranges: kernel B1 of each ``(store,
+    n)`` of ``stores`` against its rows of ``d_rows`` int8 [sum n, RS],
+    every range launched before any result is read back; the sum of their
+    exact integer partials, f64 [M, C] on ``out`` (exact: integers below
+    2^53)."""
+    parts, n0 = [], 0
+    for packed, n in stores:
+        parts.append(fwd_partial(packed, d_rows[n0:n0 + n], C))
+        n0 += n
+    acc = parts[0].to(out)
+    for p in parts[1:]:
+        acc = acc + p.to(out)
+    return acc
+
+
+def ranges_t(stores, dm: torch.Tensor, out: torch.device) -> torch.Tensor:
+    """Pass 2 over consecutive sample ranges: kernel B2 of each store
+    against ``dm`` int8 [M, C], every range launched before any result is
+    read back; their samples' rows, f64 [sum n, C] in sample order on
+    ``out``."""
+    parts = [grm_kernel.plane_dot_t(packed, dm.to(packed.device))
+             for packed, _n in stores]
+    rows = [t_rows(p, n).to(out) for p, (_s, n) in zip(parts, stores)]
+    return rows[0] if len(rows) == 1 else torch.cat(rows)
+
+
 def sharded_product(stores, af, inv, miss: MissingPairs,
-                    b: torch.Tensor) -> torch.Tensor:
-    """GRM @ b over a store kept as contiguous sample ranges.
+                    b: torch.Tensor, wire=None) -> torch.Tensor:
+    """GRM @ b over a store kept as contiguous sample ranges: the lead's
+    part of the product.
 
     ``stores`` lists ``(uint8 [M, store_width(n)] store, n)`` per range, in
     sample order, each on its own device; ``af``, ``inv``, ``miss`` and
@@ -418,9 +458,14 @@ def sharded_product(stores, af, inv, miss: MissingPairs,
     step that spans all samples: the slices of ``b`` (one scale over all
     N), the sum of the ranges' B1 partials, the f64 recombinations and the
     missing-pair corrections.  Kernels B1 and B2 run once per range on its
-    device, every range launched before any result is read back.  Their
-    integers are exactly those of one store, so the product does not depend
-    on the split, bit for bit.  One range is the operator's own product.
+    device (:func:`ranges_fwd`, :func:`ranges_t`).  With ``wire``
+    (``parallel/distributed.Wire``) the ranges of ``stores`` are the
+    first samples, and the other ranks of a process group hold the rest:
+    they get their slice rows and the B2 operand and return their B1
+    partials and B2 rows (:func:`rank_product`), their kernels running
+    while the lead's do.  The integers are exactly those of one store, so
+    the product does not depend on the split, bit for bit.  One range is
+    the operator's own product.
 
     The algebra of the JAX package's ``_packed2_grm_matvec`` with
     ``impl="pallas"``: kernel B1 takes the slices of ``b``, kernel B2 the
@@ -441,15 +486,12 @@ def sharded_product(stores, af, inv, miss: MissingPairs,
     # pass 1: cv = Cm @ b (padded samples meet zero slice rows)
     d, scale = _slice_i8(B, S)                        # [N, R, S]
     d = d.reshape(N, RS)
-    parts, n0 = [], 0
-    for packed, n in stores:
-        parts.append(fwd_partial(packed, d[n0:n0 + n], Cpad))
-        n0 += n
-    acc = parts[0].to(lead)
-    for p in parts[1:]:
-        acc = acc + p.to(lead)          # exact: integers below 2^53
-    cv = torch.sum(acc[:, :RS].reshape(M, R, S) * _slice_weights(scale, S),
-                   dim=-1)
+    n_here = sum(n for _s, n in stores)
+    sent = wire.post_slices(R, d) if wire is not None else None
+    acc = ranges_fwd(stores, d[:n_here], Cpad, lead)[:, :RS]
+    if wire is not None:
+        acc = acc + wire.sum_partials(sent, M, RS).to(lead, torch.float64)
+    cv = torch.sum(acc.reshape(M, R, S) * _slice_weights(scale, S), dim=-1)
 
     mv = torch.sum(B, dim=0)[None, :] - miss.per_variant(B)
     gv = inv[:, None] * (cv - 2.0 * af[:, None] * mv)   # [M, R]
@@ -458,15 +500,33 @@ def sharded_product(stores, af, inv, miss: MissingPairs,
     w1 = inv[:, None] * gv
     w2 = 2.0 * af[:, None] * inv[:, None] * gv
     d2, scale2 = _slice_i8(w1, S)                      # [M, R, S]
-    dm = _pad_cols(d2.reshape(M, RS), Cpad)
-    parts = [grm_kernel.plane_dot_t(packed, dm.to(packed.device))
-             for packed, _n in stores]
-    rows = [t_rows(p, n).to(lead) for p, (_s, n) in zip(parts, stores)]
-    acc4 = rows[0] if len(rows) == 1 else torch.cat(rows)
-    out = torch.sum(acc4[:, :RS].reshape(N, R, S)
-                    * _slice_weights(scale2, S), dim=-1)
+    dm = d2.reshape(M, RS)
+    sent = wire.post_operand(dm) if wire is not None else None
+    rows = ranges_t(stores, _pad_cols(dm, Cpad), lead)[:, :RS]
+    if wire is not None:
+        rows = torch.cat([rows] + [r.to(lead, torch.float64)
+                                   for r in wire.gather_rows(sent, RS)])
+    out = torch.sum(rows.reshape(N, R, S) * _slice_weights(scale2, S),
+                    dim=-1)
     out = (out - (torch.sum(w2, dim=0)[None, :] - miss.per_sample(w2))) / M
     return out[:, 0] if squeeze else out
+
+
+def rank_product(stores, wire, R: int, M: int):
+    """A rank's part of :func:`sharded_product` over a process group: its
+    consecutive ranges ``stores`` (as there) against the slice rows that
+    ``wire`` brings, B1 once per range, the partials' sum sent back as
+    int32 [M, R * 8]; then B2 once per range against the operand, the
+    rows sent back as int32 [n, R * 8].  Only the live R * 8 columns
+    travel, not the kernels' padded C; the integers are exact in int32
+    (``parallel/distributed.Wire``)."""
+    RS, C = R * N_SLICES, kernel_cols(R)
+    dev = stores[0][0].device
+    d = wire.recv_slices(RS).to(dev)
+    wire.reduce_partials(ranges_fwd(stores, d, C, dev)[:, :RS]
+                         .to(torch.int32))
+    dm = _pad_cols(wire.recv_operand(M, RS).to(dev), C)
+    wire.send_rows(ranges_t(stores, dm, dev)[:, :RS].to(torch.int32))
 
 
 def packed2_grm_matvec(packed, af, inv, miss_var, miss_samp,

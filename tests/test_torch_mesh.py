@@ -91,6 +91,52 @@ def test_sharded_product(grms, shards, R):
                                  RTOL_DENSE * np.abs(want_d).max(axis=0))
 
 
+def _whole_store_product(op, b: torch.Tensor) -> torch.Tensor:
+    """The 2-bit product over one store written out step by step, as
+    ``sharded_product`` computed it for one range before its lead's and
+    ranks' parts were split apart: B1 over the whole store, the
+    recombination, the corrections, B2 over the whole store."""
+    from saigegds_tpu_torch.ops import grm_kernel
+    from saigegds_tpu_torch.ops.packed_grm import N_SLICES, _pad_cols, \
+        _slice_i8, _slice_weights, kernel_cols
+    B = b[:, None] if b.dim() == 1 else b
+    M, (N, R), S = op.n_variants, B.shape, N_SLICES
+    RS, C, N4 = R * S, kernel_cols(R), op.packed.shape[1]
+    d, scale = _slice_i8(B, S)
+    d4 = torch.zeros(4 * N4, C, dtype=torch.int8)
+    d4[:N, :RS] = d.reshape(N, RS)
+    acc = grm_kernel.plane_dot_fwd(op.packed, d4.view(4, N4, C))
+    cv = torch.sum(acc[:, :RS].reshape(M, R, S) * _slice_weights(scale, S),
+                   dim=-1)
+    mv = torch.sum(B, dim=0)[None, :] - op.miss.per_variant(B)
+    gv = op.inv[:, None] * (cv - 2.0 * op.af[:, None] * mv)
+    w1 = op.inv[:, None] * gv
+    w2 = 2.0 * op.af[:, None] * op.inv[:, None] * gv
+    d2, scale2 = _slice_i8(w1, S)
+    out4 = grm_kernel.plane_dot_t(op.packed, _pad_cols(d2.reshape(M, RS), C))
+    out = torch.sum(out4.view(-1, C)[:N, :RS].reshape(N, R, S)
+                    * _slice_weights(scale2, S), dim=-1)
+    out = (out - (torch.sum(w2, dim=0)[None, :] - op.miss.per_sample(w2))) \
+        / M
+    return out[:, 0] if b.dim() == 1 else out
+
+
+@pytest.mark.parametrize("R", [1, 30])
+@pytest.mark.parametrize("shards", [1, 2, 3, 5])
+def test_product_keeps_the_whole_store_algebra(grms, shards, R):
+    """The products of one process, through ``sharded_product``'s lead
+    part with no other rank, equal the one-store algebra written out
+    (``_whole_store_product``) bit for bit: splitting the product into the
+    lead's and the ranks' parts changed no bit."""
+    packed = grms[0]
+    b = torch.from_numpy(np.random.default_rng(shards * 10 + R).normal(
+        size=(N_GRM, R) if R > 1 else N_GRM))
+    want = _whole_store_product(packed, b)
+    assert torch.equal(packed.matvec(b), want)
+    assert torch.equal(ShardedGrmHandle(packed, cpu_mesh(shards)).matvec(b),
+                       want)
+
+
 def test_shard_stores_hold_their_ranges(grms, grm_codes):
     """Each shard's store is its sample range packed at its own width."""
     from saigegds_tpu_torch.ops.packed_grm import store_width, \

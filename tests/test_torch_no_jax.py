@@ -10,7 +10,8 @@
   and tables; it runs the PheWAS fit and scan, GxG and the command line's
   ``fit`` and ``scan`` (``python -m saigegds_tpu_torch``); it imports
   ``parallel/`` and fits and scans over a mesh of CPU shards and through
-  the variant-range shard API; and it loads no
+  the variant-range shard API, and takes a GRM product over a mesh that
+  spans two processes of a gloo group; and it loads no
   ``saigegds_tpu`` module on the way (``saigegds_tpu/__init__.py`` imports
   jax, so the port copies the framework-free host layers instead).
 * Those copies stay byte-identical to their originals, so a fix to one is
@@ -332,12 +333,60 @@ print("OK")
 """
 
 
-def _run(code: str, tmp_path):
+_SPANNING_PRODUCT_RANK = r"""
+import sys
+sys.modules["jax"] = None          # any import of jax or pandas now raises
+sys.modules["pandas"] = None
+import numpy as np
+import torch
+from saigegds_tpu_torch.ops.packed_grm import build_packed2_grm
+from saigegds_tpu_torch.parallel.distributed import init_distributed
+from saigegds_tpu_torch.parallel.mesh import ShardedGrmHandle, make_mesh
+
+rank, init, work = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+init_distributed(init, 2, rank, device="cpu", timeout_s=120)
+rng = np.random.default_rng(7)
+codes = rng.binomial(2, rng.uniform(0.1, 0.5, (70, 1)), size=(70, 333))
+codes = codes.astype(np.int8)
+codes[rng.random(codes.shape) < 0.02] = 3
+b = torch.from_numpy(rng.normal(size=(333, 3)))
+op = build_packed2_grm(codes, device="cpu")
+h = ShardedGrmHandle(op, make_mesh(devices=["cpu"]))
+if rank == 0:
+    assert torch.equal(h.matvec(b), op.matvec(b))
+    h.wire.stop()
+else:
+    assert h.serve() == 1
+bad = [m for m in sys.modules
+       if m == "saigegds_tpu" or m.startswith("saigegds_tpu.")
+       or (m.startswith(("jax", "pandas")) and sys.modules[m] is not None)]
+assert not bad, bad
+print("OK")
+"""
+
+_SPANNING_PRODUCT_WITHOUT_JAX_OR_PANDAS = r"""
+import os
+import subprocess
+import sys
+work = os.path.dirname(sys.argv[1])
+rank_code = sys.argv[2]
+procs = [subprocess.Popen([sys.executable, "-c", rank_code, str(r),
+                           f"file://{work}/rendezvous", work],
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True) for r in range(2)]
+for r, p in enumerate(procs):
+    out, err = p.communicate(timeout=240)
+    assert p.returncode == 0 and out.strip().endswith("OK"), (r, err[-3000:])
+print("OK")
+"""
+
+
+def _run(code: str, tmp_path, *args):
     # one intra-op thread: the scripts' tensors are small, and parallel
     # test workers share the cores
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run(
-        [sys.executable, "-c", code, str(tmp_path / "g.gds")],
+        [sys.executable, "-c", code, str(tmp_path / "g.gds"), *args],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
         timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -384,6 +433,14 @@ def test_phewas_gxg_cli_without_jax_or_pandas(tmp_path):
 
 def test_mesh_and_shards_without_jax_or_pandas(tmp_path):
     _run(_MESH_WITHOUT_JAX_OR_PANDAS, tmp_path)
+
+
+def test_spanning_product_without_jax_or_pandas(tmp_path):
+    """Two processes of a gloo group, each unable to import jax or
+    pandas: the product over a mesh that spans them equals the one-store
+    product bit for bit."""
+    _run(_SPANNING_PRODUCT_WITHOUT_JAX_OR_PANDAS, tmp_path,
+         _SPANNING_PRODUCT_RANK)
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
