@@ -12,17 +12,26 @@ and prints no result line):
 1. the card (``nvidia-smi``), torch and CUDA versions;
 2. build every kernel of the fit, scan and aggregate paths from
    ``saigegds_tpu_torch/csrc`` (one ``nvcc`` per source, all at once) and
-   print each kernel's registers and spills;
+   print each kernel's registers and spills; it fails when an entry
+   spills, or when ``libplane_dot.so`` (B1, B2) holds no warpgroup MMA
+   (``GMMA`` in ``cuobjdump -sass``), no TMA or bulk copy (``UTMALDG`` or
+   ``UBLKCP``), or any ``mma.sync`` (``IMMA``);
 3. every kernel against its plain PyTorch version on the card, bit-equal,
    at a ragged shape and at its main-path shapes: B3
    (``indicator_dot_2bit``) at the scan's block (B = 1024 variants,
    N = 430,000 samples, C = 128); B1 (``plane_dot_fwd``) and B2
-   (``plane_dot_t``) at two ragged shapes (37 and 129 variants x 1,031
-   samples, C = 128 and 256) and at the fit's (M = 16,384 GRM variants,
-   N = 430,000, C = 128 and 256), each over a store of the GRM store's
-   width, at C = 128 each beside ``torch._int_mm`` on the store decoded
-   beforehand (B1: against the slices; B2: the decoded store's transpose
-   against its operand), a contraction-only yardstick; B4 (``indicator_dot``, int8 codes) at the aggregate
+   (``plane_dot_t``) at three ragged shapes (37, 129 and 129 variants x
+   1,031 and 1,069 samples, C = 128, 256 and 16) and over one store of the
+   fit's shape (M = 16,384 GRM variants, N = 430,000) at every column
+   tile, C = 16, 32, 64, 128 and 256, and at C = 768 (three tiles of
+   256, as the PheWAS fit runs), each over a store of the GRM store's
+   width, B1 from the slices' sample rows as the fit hands them over
+   (``plane_dot_fwd_rows``, so each time includes the wrapper's re-layout
+   of its operand; the general wrapper ``plane_dot_fwd`` held equal to
+   it), each beside ``torch._int_mm`` on
+   the store decoded beforehand (B1: against the slices; B2: the decoded
+   store's transpose against its operand), a contraction-only yardstick;
+   B4 (``indicator_dot``, int8 codes) at the aggregate
    tests' single-variant batch (B = 256, N = 430,000, C = 128), B3 and B4
    each beside ``torch._int_mm`` (cuBLAS int8 GEMM) on the indicators
    decoded beforehand, a contraction-only yardstick the port never calls;
@@ -46,7 +55,9 @@ and prints no result line):
    ``checkpoint=`` set to a path in ``_smoke/``; it must converge with
    tau_G > 0 and finite variance ratios, B1 and B2 must each launch once
    per GRM product, and the checkpoint files must be gone once the model
-   is assembled; then one GRM product at R = 30
+   is assembled; the fit's products by column count C and the device
+   seconds of its B1 and B2 calls (CUDA events around each wrapper call)
+   are printed; then one GRM product at R = 30
    columns over a random store of the fit's size and missing rate, timed
    by CUDA events and profiled by kernel (``torch.profiler``), and its
    missing-pair corrections alone in five forms (``index_add_`` with and
@@ -233,9 +244,12 @@ RTOL = 1e-10            # card vs CPU table agreement
 KERNEL_SHAPES = [(37, 1031), (BLOCK, N_SAMPLES)]
 M_FIT = 16_384          # GRM variants of the fit (bench.py M_FITMIX)
 FIT_SMALL = (2000, 1000)  # samples x variants of the card-vs-CPU fit
-GRM_SHAPES = [(37, 1031, 128), (129, 1031, 256), (M_FIT, N_SAMPLES, 128),
-              (M_FIT, N_SAMPLES, 256)]
-GRM_MAIN = GRM_SHAPES.index((M_FIT, N_SAMPLES, 128))
+GRM_SHAPES = [(37, 1031, 128), (129, 1031, 256), (129, 1069, 16)]
+GRM_WIDTHS = (16, 32, 64, 128, 256, 768)   # C of B1 and B2 over the fit's
+#                                            store: every tile, and tiles
+#                                            of 256 looped (PheWAS)
+GRM_MAIN = len(GRM_SHAPES) + GRM_WIDTHS.index(64)   # the JSON line's shape:
+#                                            the fit's most frequent C
 MV_ROWS, MV_COLS = 2048, 31  # the card-vs-CPU GRM product
 PROFILE_COLS = 30       # columns of the profiled full-width GRM product
 RTOL_MV = 1e-12         # card vs CPU GRM product (f64 atomics reorder)
@@ -431,31 +445,35 @@ def int_mm_ms(label: str, codes, vs, kern_out, runs: int = 10):
                                 kern_out), runs)
 
 
-def grm_int_mm_ms(label: str, packed, d4, dm, out_fwd, out_t,
-                  runs: int = 5) -> dict:
-    """The yardstick of B1 and B2: ``torch._int_mm`` on the store decoded
-    beforehand (outside the time) into int8 [M, 4 N4], plane p in columns
-    p N4 .. p N4 + N4 - 1: against d4 as [4 N4, C] for B1, and the decoded
-    store's transpose (made contiguous outside the time) against dm for
-    B2; contraction only.  Held against the kernels' outputs."""
+def decoded_store(packed):
+    """The yardstick's operands of B1 and B2: the store decoded into int8
+    [M, 4 N4] (plane p in columns p N4 .. p N4 + N4 - 1) and its
+    transpose, made once, outside every time."""
     import torch
     M, n4 = packed.shape
-    C = d4.shape[2]
     D = torch.empty(M, 4 * n4, dtype=torch.int8, device=packed.device)
     for p in range(4):
         D[:, p * n4:(p + 1) * n4] = ((packed >> (2 * p)) & 3).view(
             torch.int8)
+    return D, D.t().contiguous()
+
+
+def grm_int_mm_ms(label: str, decoded, d4, dm, out_fwd, out_t,
+                  runs: int = 5) -> dict:
+    """The yardstick of B1 and B2: ``torch._int_mm`` on the store decoded
+    beforehand (`decoded_store`): against d4 as [4 N4, C] for B1, and the
+    decoded store's transpose against dm for B2; contraction only.  Held
+    against the kernels' outputs."""
+    import torch
+    D, Dt = decoded
+    n4, C = d4.shape[1], d4.shape[2]
     what = "the store decoded beforehand"
     out = {"plane_dot_fwd": int_mm_best(
-        f"{label} B1", what, D, d4.view(4 * n4, C),
+        f"{label} B1", what, D, d4.reshape(4 * n4, C).contiguous(),
         lambda got: torch.equal(got.double(), out_fwd), runs)}
-    Dt = D.t().contiguous()
-    del D
     out["plane_dot_t"] = int_mm_best(
         f"{label} B2", what + ", transposed", Dt, dm,
         lambda got: torch.equal(got.double().view(4, n4, C), out_t), runs)
-    del Dt
-    torch.cuda.empty_cache()
     return out
 
 
@@ -497,40 +515,126 @@ def random_store(M: int, N: int, device, gen):
     return x & ~(m3 | (m3 << 1))
 
 
-def check_grm(M: int, N: int, C: int, device, gen,
-              library: bool = False) -> dict:
-    """B1 and B2 on the card vs their plain versions on the same tensors:
-    a random store of the GRM store's width, slices in [-64, 64] with zero
-    rows at padded samples; with ``library``, each beside its
-    ``torch._int_mm`` yardstick (`grm_int_mm_ms`)."""
+def check_grm(packed, N: int, C: int, gen, decoded=None) -> dict:
+    """B1 and B2 on the card vs their plain versions on the same tensors: a
+    store of the GRM store's width, B1's slices in [-64, 64] as the sample
+    rows [N, C] that the GRM product hands kernel B1 through
+    ``plane_dot_fwd_rows`` (so the time includes the wrapper's re-layout;
+    the plain version and ``plane_dot_fwd`` take them zero-padded to
+    [4, N4, C]), B2's operand in [-64, 64]; with ``decoded``
+    (`decoded_store`), each beside its ``torch._int_mm`` yardstick
+    (`grm_int_mm_ms`)."""
     import torch
     from saigegds_tpu_torch.ops import grm_kernel
 
-    packed = random_store(M, N, device, gen)
-    n4 = packed.shape[1]
-    d4 = torch.randint(-64, 65, (4, n4, C), dtype=torch.int8, device=device,
-                       generator=gen)
-    d4.view(4 * n4, C)[N:] = 0
-    dm = torch.randint(-64, 65, (M, C), dtype=torch.int8, device=device,
-                       generator=gen)
+    M, n4 = packed.shape
+    d_rows = torch.randint(-64, 65, (N, C), dtype=torch.int8,
+                           device=packed.device, generator=gen)
+    d4 = torch.zeros(4 * n4, C, dtype=torch.int8, device=packed.device)
+    d4[:N] = d_rows
+    d4 = d4.view(4, n4, C)
+    dm = torch.randint(-64, 65, (M, C), dtype=torch.int8,
+                       device=packed.device, generator=gen)
     ops = 2 * M * 4 * n4 * C
+    fwd = grm_kernel.plane_dot_fwd_rows(packed, d_rows, C)
+    if not torch.equal(grm_kernel.plane_dot_fwd(packed, d4), fwd):
+        raise AssertionError(f"plane_dot_fwd M={M} N={N} C={C}: the "
+                             "wrapper of [4, N4, C] slices and the one of "
+                             "sample rows disagree")
     out = {}
-    for name, rhs, out_bytes in (("plane_dot_fwd", d4, 4 * M * C),
-                                 ("plane_dot_t", dm, 4 * 4 * n4 * C)):
-        kern = getattr(grm_kernel, name)
-        plain = getattr(grm_kernel, name + "_plain")
+    for name, kern, plain, nbytes in (
+            ("plane_dot_fwd",
+             lambda: grm_kernel.plane_dot_fwd_rows(packed, d_rows, C),
+             lambda: grm_kernel.plane_dot_fwd_plain(packed, d4),
+             d_rows.numel() + 4 * M * C),
+            ("plane_dot_t", lambda: grm_kernel.plane_dot_t(packed, dm),
+             lambda: grm_kernel.plane_dot_t_plain(packed, dm),
+             dm.numel() + 4 * 4 * n4 * C)):
         out[name] = compare_and_time(
-            f"{name} M={M} N={N} C={C}", lambda: kern(packed, rhs),
-            lambda: plain(packed, rhs), 5,
-            bound(packed.numel() + rhs.numel() + out_bytes, ops))
-    if library:
-        from saigegds_tpu_torch.ops import grm_kernel as gk
-        lib = grm_int_mm_ms(f"M={M} N={N} C={C}", packed, d4, dm,
-                            gk.plane_dot_fwd(packed, d4),
-                            gk.plane_dot_t(packed, dm))
+            f"{name} M={M} N={N} C={C}", kern, plain, 5,
+            bound(packed.numel() + nbytes, ops))
+    layout_ms = median_ms(
+        lambda: grm_kernel.fwd_rows_operand(d_rows, n4, C, packed.device), 5)
+    layout = bound(d_rows.numel() + C * 4 * (-(-n4 // 32) * 32), 0)
+    log(f"  of which B1's layout kernel (sample rows -> the kernel's order): "
+        f"{layout_ms:.3f} ms, bound {layout['bound_ms']:.4f} ms (bytes)")
+    if decoded is not None:
+        lib = grm_int_mm_ms(f"M={M} N={N} C={C}", decoded, d4, dm, fwd,
+                            grm_kernel.plane_dot_t(packed, dm))
         for name, ms in lib.items():
             out[name]["library_ms"] = ms
     return out
+
+
+def check_grm_build(name: str):
+    """Phase 2's checks of a built source: no entry spills, and B1's and
+    B2's library runs on the warpgroup MMA fed by TMA or bulk copies, with
+    no ``mma.sync`` left (``cuobjdump -sass``)."""
+    from saigegds_tpu_torch.ops import _cuda
+    spills = [line.strip() for line in _cuda.BUILD_LOG.get(name, "")
+              .splitlines() if "spill" in line
+              and ("0 bytes spill stores, 0 bytes spill loads" not in line)]
+    if spills:
+        raise AssertionError(f"{name}: an entry spills: {spills}")
+    if name != "plane_dot":
+        return
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", os.path.join(
+        _cuda.BUILD_DIR, "libplane_dot.so")], capture_output=True,
+        text=True, timeout=300, check=True).stdout
+    count = {op: sass.count(op) for op in ("GMMA", "UTMALDG", "UBLKCP",
+                                            "IMMA")}
+    log(f"  SASS plane_dot: {json.dumps(count)}")
+    if not count["GMMA"] or not (count["UTMALDG"] or count["UBLKCP"]) \
+            or count["IMMA"]:
+        raise AssertionError("plane_dot: B1 and B2 must run warpgroup "
+                             "MMAs on tiles copied by TMA or bulk copies, "
+                             f"and no mma.sync (SASS {count})")
+
+
+class KernelClock:
+    """Device seconds of every B1 and B2 wrapper call while active: CUDA
+    events around each call of ``grm_kernel.plane_dot_fwd``,
+    ``plane_dot_fwd_rows`` (both B1's) and ``plane_dot_t`` (re-layout,
+    kernel and the f64 result), summed by kernel after a synchronize.
+    Launch counts are untouched."""
+
+    NAMES = {"plane_dot_fwd": "plane_dot_fwd",
+             "plane_dot_fwd_rows": "plane_dot_fwd",
+             "plane_dot_t": "plane_dot_t"}   # wrapper -> kernel
+
+    def __enter__(self):
+        import torch
+        from saigegds_tpu_torch.ops import grm_kernel
+        self.events = {kernel: [] for kernel in self.NAMES.values()}
+        self.saved = {name: getattr(grm_kernel, name) for name in self.NAMES}
+
+        def timed(name):
+            fn = self.saved[name]
+
+            def call(*args):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(*args)
+                b.record()
+                self.events[self.NAMES[name]].append((a, b))
+                return out
+            return call
+        for name in self.NAMES:
+            setattr(grm_kernel, name, timed(name))
+        return self
+
+    def __exit__(self, *exc):
+        from saigegds_tpu_torch.ops import grm_kernel
+        for name, fn in self.saved.items():
+            setattr(grm_kernel, name, fn)
+
+    def seconds(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        return {name: sum(a.elapsed_time(b) for a, b in ev) / 1e3
+                for name, ev in self.events.items()}
 
 
 def check_b4(B: int, N: int, device, gen) -> dict:
@@ -2486,13 +2590,20 @@ def main() -> int:
             if "entry function" in line or "registers" in line \
                     or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+        check_grm_build(name)
 
     # 3. kernels vs plain versions
     mark('3. kernels vs plain versions')
     gen = torch.Generator(device=device).manual_seed(SEED)
     checks = [check_kernel(B, N, device, gen) for B, N in KERNEL_SHAPES]
-    grm_checks = [check_grm(M, N, C, device, gen, library=(i == GRM_MAIN))
-                  for i, (M, N, C) in enumerate(GRM_SHAPES)]
+    grm_checks = [check_grm(random_store(M, N, device, gen), N, C, gen)
+                  for M, N, C in GRM_SHAPES]
+    store = random_store(M_FIT, N_SAMPLES, device, gen)
+    decoded = decoded_store(store)
+    grm_checks += [check_grm(store, N_SAMPLES, C, gen, decoded)
+                   for C in GRM_WIDTHS]
+    del store, decoded
+    torch.cuda.empty_cache()
     b4_checks = [check_b4(B, N, device, gen) for B, N in B4_SHAPES]
     rare = make_rare_codes(max(B5_ROWS), N_SAMPLES, SEED + 4)
     b5_checks = [check_b5(ragged_stream_codes(SEED), device)] + \
@@ -2517,7 +2628,9 @@ def main() -> int:
         reset_launches()
         ck = os.path.join(work, "ck_fit")
         kept4 = {}
-        model, inst = fit(gds_fit, data, "cuda", checkpoint=ck, keep=kept4)
+        with KernelClock() as clock:
+            model, inst = fit(gds_fit, data, "cuda", checkpoint=ck,
+                              keep=kept4)
         fit4 = inst
         fit_launches = expect_launches("the fit", {
             "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"]})
@@ -2535,6 +2648,27 @@ def main() -> int:
             f"markers, mean ratio {model.mean_var_ratio:.4f}), checkpoints "
             f"on and removed after; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        secs = clock.seconds()
+        log(f"the fit's GRM products by kernel column count C: "
+            f"{json.dumps(inst['product_widths'])}; B1 + B2 device time "
+            f"{sum(secs.values()):.3f} s (B1 {secs['plane_dot_fwd']:.3f} s, "
+            f"B2 {secs['plane_dot_t']:.3f} s, CUDA events around each "
+            f"wrapper call)")
+        widths = {int(c): n for c, n in inst["product_widths"].items()}
+        by_c = {}
+        for C, res in zip(GRM_WIDTHS, grm_checks[len(GRM_SHAPES):]):
+            by_c[C] = {"fit_products": widths.get(C, 0), **{
+                k: {f: res[k].get(f) for f in ("ms", "bound_ms", "plain_ms",
+                                               "library_ms")}
+                for k in ("plane_dot_fwd", "plane_dot_t")}}
+        log(f"{card}: B1 and B2 by C over the fit's store (phase 3, M = "
+            f"{M_FIT}, N = {N_SAMPLES}) beside the fit's products at each C: "
+            f"{json.dumps(by_c)}")
+        missing = set(widths) - set(GRM_WIDTHS)
+        if missing:
+            raise AssertionError(f"the fit ran B1 and B2 at C = "
+                                 f"{sorted(missing)}, which phase 3 does "
+                                 "not hold against the plain versions")
 
         profile_product(device, gen)
 

@@ -1,6 +1,7 @@
 // The two passes of the 2-bit GRM matvec on Hopper: fused planar 2-bit
 // decode + exact integer contraction against signed-7-bit slices on the
-// int8 tensor cores.
+// int8 tensor cores, through the warpgroup MMA (wgmma) with operand tiles
+// brought in by TMA.
 //
 // Replaces saigegds_tpu/ops/pallas_grm.py::_fwd_kernel (kernel B1, the
 // Pallas body of plane_dot_fwd) and ::_t_kernel (kernel B2, the body of
@@ -11,407 +12,593 @@
 //   B1 (pass 1):  out[m, c]    = sum_p sum_j code_p(packed[m, j]) * d4[p, j, c]
 //   B2 (pass 2):  out[p, j, c] = sum_m code_p(packed[m, j]) * dm[m, c]
 //
-// d4 [4, N4, C] and dm [M, C] are int8 slices with |value| <= 64 (zero at
-// padded samples and columns).  Every product is an integer of at most
-// 2 * 64 = 128, so s32 sums are exact for N < 2^24 samples (B1) and for
-// M < 2^24 variants (B2); the Pallas kernels' 2^17-sample and
-// 131,072-variant segments existed only for their f32 accumulators.
-// Every packed row must start 4-byte aligned (N4 % 4 == 0 and an aligned
-// base): the staging loads four byte columns of a row as one 32-bit word.
-// The port's GRM store pads N4 so (ops/packed_grm.py store_width); the
-// entry points refuse other stores.
+// d4 and dm are int8 slices with |value| <= 64 (zero at padded samples and
+// columns).  Every product is an integer of at most 2 * 64 = 128, so s32
+// sums are exact for N < 2^24 samples (B1) and for M < 2^24 variants (B2);
+// the Pallas kernels' 2^17-sample and 131,072-variant segments existed only
+// for their f32 accumulators.  A tensor map needs every row of the store to
+// start 16-byte aligned (N4 % 16 == 0 and an aligned base); the port's GRM
+// store pads N4 so (ops/packed_grm.py store_width), and the entry points
+// refuse other stores.
 //
 // What bounds them.  At the fit's main-path shape (M = 16,384 variants,
-// N = 430,000 samples, C = 128 columns) each pass is 1.8e12 int8 operations
-// (0.91 ms at the H100's dense int8 tensor-core peak of 1,979 TOP/s, a
-// rate only wgmma reaches; the warp-level mma.sync used here reaches a
-// part of it) and reads 1.76 GB of packed codes once (0.53 ms at 3.35
-// TB/s).  The slices are small (d4 55 MB, dm 2 MB at C = 128) but every
-// block re-reads its column tile of them: d4 once per 128 variants and dm
-// once per 32 byte columns, ~7 GB each from L2.
+// N = 430,000 samples, N4 = 107,504) each pass reads 1.76 GB of packed
+// codes once (0.53 ms at 3.35 TB/s) and does 2 * M * 4 N4 * C int8
+// operations: 1.8e12 at C = 128 (0.91 ms at the dense int8 tensor-core
+// peak of 1,979 TOP/s, a rate that only wgmma reaches), so from C = 64 up
+// they are bound by the tensor cores and below it by the store's bytes.
+// The slices are small (d4 55 MB, dm 2 MB at C = 128) but every block
+// reads its column tile of them again from L2: d4 once per 256 variants
+// (3.5 GB at C = 128), dm once per 64 byte columns (3.5 GB).
 //
-// Both kernels contract on mma.sync.m16n8k32.s32.s8.s8.s32 (no .satfinite:
-// exact).  The fragments need no shuffle: a 32-bit A or B register holds
-// four consecutive k, and the staging already builds such words.  A block
-// owns a 128 x 128 output tile; 8 warps as 2 x 4 own 64 x 32 each (4 x 4
-// m16n8 tiles, 64 s32 accumulators a thread).  Per stage (k = 128 bytes
-// of each operand row) a thread loads the next stage's global bytes into
-// registers before the current stage's mmas, so the load latency hides
-// behind them; the operand words sit in shared memory with rows padded so
-// that the 32 lanes' fragment reads fall on 32 banks.  Two blocks per SM.
-// Left to a later wgmma + TMA design: A and B read by the tensor cores
-// straight from shared memory (here every fragment costs a shared load,
-// which with the __syncthreads per stage holds these kernels near a fifth
-// of the peak), multicast of the slice tiles to the blocks of a cluster
-// (the L2 re-reads above), and column tiles narrower than 128.
+// The design.  A block is one producer warpgroup and two consumer
+// warpgroups, one block per SM.  One thread of the producer keeps a ring of
+// up to 8 stages in shared memory filled by TMA, each stage completing its
+// bytes on a "full" mbarrier; the consumers release a stage on its "empty"
+// mbarrier (one arrival per consumer warp) once their MMAs have read it,
+// so the copies run ahead of the tensor cores by the depth of the ring.
+// setmaxnreg gives the producer's registers to the consumers.  A stage's
+// slice tile is BN rows of 128 bytes of k, K-major, written with the
+// 128-byte swizzle that the wgmma descriptor names, and the tensor cores
+// read it straight from shared memory.  Integer wgmma reads shared operands
+// K-major only, and the packed codes must be decoded anyway, so A comes from
+// registers: each consumer thread reads its rows' packed bytes from the
+// staged tile (bank-conflict free) and turns them into the m64nNk32 A
+// fragment on the CUDA cores.  A consumer warpgroup owns MT m64 tiles
+// (MT = 2, or 1 at BN = 256), builds the stage's A fragments, then starts
+// all of the stage's MMAs, commits and waits; the two warpgroups interleave
+// on the tensor cores.  The column tile BN (wgmma's n) is a template
+// parameter, 16, 32, 64, 128 or 256, so a product of one right-hand side
+// (8 slice columns) runs at BN = 16 and is bound by the store's bytes;
+// wider C loops over tiles of 128 or 256.  Left open: multicast of the
+// slice tiles to the blocks of a cluster (the L2 re-reads above) and a
+// persistent grid.
 //
-// B1.  k runs over (byte column j, plane p): the A word of variant m at
-// byte column j is its packed byte with each bit pair spread to a byte
-// (spread_planes), the B word of column c is the four planes' slice bytes
-// d4[0..3, j, c] (transpose4).  One mma covers 16 variants x 8 byte columns
-// (32 samples) x 8 columns.  Blocks split the sample axis so that the
-// resident slots fill once; partial sums meet in the output through int32
-// atomicAdd (exact and order-independent).
+// B1.  k runs over (byte column j, plane p), a stage being 32 byte columns
+// (128 k).  Thread t of a quad reads 8 packed bytes of each of its rows (at
+// byte column 8t of the stage) and turns each word of four bytes into four
+// A words, one per byte column, holding its four planes (plane masks, then
+// a 4 x 4 byte transpose).  Byte column 8t + 2s + h of the stage feeds
+// k-step s, half h (the fragment's k 16h + 4t .. +3), so the wrapper hands
+// the slices over in that order, d4k [C, 4 N4p] (N4p = N4 rounded up to
+// 32; laid out from the slices' sample rows by fwd_rows_layout_kernel
+// below, one transpose through shared memory; ops/grm_kernel.py
+// fwd_rows_operand): byte 32s + 16h + 4t + p of
+// each 128-byte group G of column c is d4[p, 32G + 8t + 2s + h, c].  A
+// block owns 256 variants (128 at BN = 256) x BN columns x one split of the
+// byte columns; the splits fill the card once and their partial sums meet
+// in the output through int32 atomicAdd (exact and order-independent).
 //
-// B2.  The output rows are (plane p, byte column j), an m16 tile being 16
-// byte columns of one plane, and k is the variant: the A word of row
-// (p, j) is plane p of four consecutive variants' bytes at j, the B word of
-// column c is dm[m .. m+3, c] (transpose4 both).  A block owns 32 byte
-// columns (128 output rows) and loops over all M by itself: with N4 / 32
-// blocks (3,360 at N = 430,000) the card is full without splitting M, so
-// there are no atomics and the result is deterministic.
+// B2.  The output rows are (plane p, byte column j) and k is the variant, a
+// stage being 128 variants.  Row g of warp w is byte column 4g + w of a
+// 32-column sub-tile, at one plane, row g + 8 the next plane.  For each
+// half h of a k-step thread t reads one byte of each of variants t, 4 + t,
+// 8 + t, 12 + t of the 16-variant group (bank-conflict free: the 32 lanes
+// hit 32 banks) and masks out a plane: the A word of k 16h + 4t + i is
+// variant 16h + 4i + t.  So the operand is laid out as dmt [C, M16] (M16 =
+// M rounded up to 16; ops/grm_kernel.py t_operand): byte 16G + 4t + i of
+// column c is dm[16G + 4i + t, c].  With MT = 2 a consumer warpgroup covers
+// all four planes of its own 32 byte columns (64 per block); with MT = 1
+// both cover the same 32 columns, two planes each.  A block walks all of M
+// by itself: no atomics, and the result is deterministic.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "int8_mma.cuh"
+#include "wgmma_s8.cuh"
 
 namespace {
 
-using int8_mma::mma_s8;
-using int8_mma::spread_planes;
 using int8_mma::transpose4;
+namespace wg = wgmma_s8;
 
-constexpr int THREADS = 256;                // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int TC = 128;                     // columns per block
-constexpr int CQ = TC / 4;                  // column quads of a tile
+constexpr int CONSUMERS = 2;                    // consumer warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
+constexpr int EMPTY_ARRIVALS = 4 * CONSUMERS;   // one per consumer warp
+constexpr int KB = 128;        // bytes of k per stage row of the slices
+constexpr int F_JS = KB / 4;   // B1: byte columns per stage
+constexpr int T_VS = KB;       // B2: variants per stage
+constexpr int T_JS = 32;       // B2: byte columns of a packed sub-tile
+constexpr int MAX_STAGES = 8;
+constexpr int RING_BYTES = 200 * 1024;          // the ring's shared memory
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 128 * CONSUMERS <= 65536,
+              "the block's registers fit the SM");
+constexpr uint32_t LOW2 = 0x03030303u;          // one 2-bit code per byte
 
-// B1 tiling (int8 tensor cores, mma.sync m16n8k32)
-constexpr int F_TB = 128;                   // variants per block
-constexpr int F_JT = 32;                    // byte columns per stage
-constexpr int F_KS = 8;                     // byte columns per mma (k = 32)
-constexpr int F_WM = 64;                    // variants per warp (2 x 4 warps)
-constexpr int F_WN = 32;                    // columns per warp
-constexpr int F_MT = F_WM / 16;             // m16 tiles per warp
-constexpr int F_NT = F_WN / 8;              // n8 tiles per warp
-constexpr int F_AS = F_JT + 4;              // A row stride in words (pad)
-constexpr int F_BS = TC + 8;                // B row stride in words (pad)
-static_assert((F_TB / F_WM) * (TC / F_WN) == WARPS, "2 x 4 warps");
-static_assert(F_JT % F_KS == 0 && F_AS % 4 == 0 && F_BS % 4 == 0,
-              "16-byte staging stores");
-static_assert(F_TB * (F_JT / 4) % THREADS == 0 && F_JT * CQ % THREADS == 0,
-              "every thread stages the same count of words");
+// Stages of ``bytes`` each that the ring holds, at most MAX_STAGES.
+constexpr int ring_stages(int bytes) {
+  return RING_BYTES / bytes < MAX_STAGES ? RING_BYTES / bytes : MAX_STAGES;
+}
 
-// B2 tiling: output rows (plane p, byte column jj) as p * T_JW + jj
-constexpr int T_JW = 32;                    // byte columns per block
-constexpr int T_TR = 4 * T_JW;              // output rows per block
-constexpr int T_MQ = 32;                    // variant quads per stage
-constexpr int T_KQ = 8;                     // variant quads per mma (k = 32)
-constexpr int T_WM = 64;                    // output rows per warp
-constexpr int T_WN = 32;                    // columns per warp
-constexpr int T_MT = T_WM / 16;             // m16 tiles per warp
-constexpr int T_NT = T_WN / 8;              // n8 tiles per warp
-constexpr int T_AS = T_TR + 8;              // A row stride in words (pad)
-constexpr int T_BS = TC + 8;                // B row stride in words (pad)
-static_assert((T_TR / T_WM) * (TC / T_WN) == WARPS, "2 x 4 warps");
-static_assert(T_WM % 16 == 0 && T_JW % 16 == 0,
-              "an m16 tile is 16 byte columns of one plane");
-static_assert(T_MQ * CQ % THREADS == 0,
-              "every thread stages the same count of words");
+template <int BN>
+struct Tile {
+  static_assert(BN == 16 || BN == 32 || BN == 64 || BN == 128 || BN == 256,
+                "wgmma n of the instantiated column tiles");
+  static constexpr int MT = BN == 256 ? 1 : 2;   // m64 tiles per warpgroup
+  static constexpr int BM = 64 * MT * CONSUMERS; // B1: variants per block
+  static constexpr int JB = T_JS * MT;           // B2: byte columns per block
+  static constexpr int B_BYTES = KB * BN;        // a stage's slice box
+  static constexpr int F_A_BYTES = BM * F_JS;    // B1: the packed box
+  static constexpr int T_A_BYTES = T_VS * JB;    // B2: MT packed boxes
+  static constexpr int F_STAGES = ring_stages(B_BYTES + F_A_BYTES);
+  static constexpr int T_STAGES = ring_stages(B_BYTES + T_A_BYTES);
+  static_assert(F_STAGES >= 3 && T_STAGES >= 3, "a ring of 3 stages at least");
+  static_assert(B_BYTES % 1024 == 0 && F_A_BYTES % 1024 == 0 &&
+                T_A_BYTES % 1024 == 0, "boxes keep the 1,024-byte alignment");
+  static constexpr int smem_bytes(int stages, int a_bytes) {
+    return stages * (B_BYTES + a_bytes) + 2 * stages * 8 + 1024;
+  }
+};
 
-// B1: a block owns 128 variants x 128 columns x one split of the byte
-// columns.
-__global__ void __launch_bounds__(THREADS, 2)
-plane_dot_fwd_kernel(const uint8_t* __restrict__ packed,
-                     const int8_t* __restrict__ d4, int* __restrict__ out,
-                     int M, long long N4, int C, long long cols_per_split) {
-  // k runs over (byte column j, plane p): one word holds the four planes
-  // of one byte column, so the mma's k = 32 is 8 byte columns.
-  // A, row r: spread planes of the stage's packed bytes of variant m0 + r
-  __shared__ __align__(16) uint32_t as[F_TB][F_AS];        // 18 KB
-  // B, byte column jj: word c holds planes 0..3 of column c0 + c
-  __shared__ __align__(16) uint32_t bs[F_JT][F_BS];        // 17 KB
-  constexpr int A_IT = F_TB * (F_JT / 4) / THREADS;   // byte quads a thread
-  constexpr int B_IT = F_JT * CQ / THREADS;           // column quads a thread
+// The ring in dynamic shared memory, aligned to 1,024 bytes: the stages'
+// slice tiles, then their packed tiles, then the full and empty barriers.
+struct Ring {
+  uint8_t* b;
+  uint8_t* a;
+  uint64_t* full;
+  uint64_t* empty;
+};
 
+template <int STAGES>
+__device__ __forceinline__ Ring ring(uint8_t* raw, int b_bytes, int a_bytes) {
+  const uint32_t at = wg::smem_u32(raw);
+  uint8_t* base = raw + (((at + 1023u) & ~1023u) - at);
+  Ring r;
+  r.b = base;
+  r.a = base + STAGES * b_bytes;
+  r.full = reinterpret_cast<uint64_t*>(r.a + STAGES * a_bytes);
+  r.empty = r.full + STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(&r.full[s], 1);
+      wg::mbar_init(&r.empty[s], EMPTY_ARRIVALS);
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  return r;
+}
+
+// B1: a block owns BM variants x BN columns x byte-column groups
+// [g_begin, g_begin + n) of 32 byte columns each.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+plane_dot_fwd_kernel(const __grid_constant__ CUtensorMap tm_packed,
+                     const __grid_constant__ CUtensorMap tm_slices,
+                     int* __restrict__ out, int M, int C, int n_groups,
+                     int groups_per_split) {
+  using T = Tile<BN>;
+  constexpr int S = T::F_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const Ring r = ring<S>(smem_raw, T::B_BYTES, T::F_A_BYTES);
+  const int g_begin = blockIdx.z * groups_per_split;
+  const int n = min(n_groups - g_begin, groups_per_split);   // >= 1
+  const int m0 = blockIdx.x * T::BM;
+  const int c0 = blockIdx.y * BN;
+  const int wgi = threadIdx.x / 128;
+
+  if (wgi == CONSUMERS) {                  // the producer
+    wg::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x % 128 == 0) {
+      wg::tma_prefetch_map(&tm_packed);
+      wg::tma_prefetch_map(&tm_slices);
+      for (int it = 0, s = 0, ph = 0; it < n; ++it) {
+        wg::mbar_wait(&r.empty[s], ph ^ 1);
+        wg::mbar_expect_tx(&r.full[s], T::B_BYTES + T::F_A_BYTES);
+        wg::tma_load_2d(r.b + s * T::B_BYTES, &tm_slices, &r.full[s],
+                        KB * (g_begin + it), c0);
+        wg::tma_load_2d(r.a + s * T::F_A_BYTES, &tm_packed, &r.full[s],
+                        F_JS * (g_begin + it), m0);
+        if (++s == S) { s = 0; ph ^= 1; }
+      }
+    }
+    return;
+  }
+
+  wg::setmaxnreg_inc<CONSUMER_REGS>();
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int warp = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int wr = (warp / (TC / F_WN)) * F_WM;   // warp's first row
-  const int wc = (warp % (TC / F_WN)) * F_WN;   // warp's first column
-  const int m0 = blockIdx.x * F_TB;
-  const int c0 = blockIdx.y * TC;
-  const long long jbeg = (long long)blockIdx.z * cols_per_split;
-  const long long jend = min(N4, jbeg + cols_per_split);
+  int acc[T::MT][BN / 2];
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int k = 0; k < BN / 2; ++k) acc[i][k] = 0;
 
-  // One stage's global reads, held in registers while the previous stage
-  // computes; bytes past the range or past M read as code 0.
-  uint32_t ra[A_IT], rb[B_IT][4];
-  auto fetch = [&](long long j0) {
+  for (int it = 0, s = 0, ph = 0; it < n; ++it) {
+    wg::mbar_wait(&r.full[s], ph);
+    // A fragments of the stage's 4 k-steps: [k-step][tile][register], from
+    // a row's 8 bytes at byte column 8t
+    const uint8_t* pa = r.a + s * T::F_A_BYTES;
+    uint32_t a[4][T::MT][4];
 #pragma unroll
-    for (int it = 0; it < A_IT; ++it) {
-      const int e = threadIdx.x + it * THREADS;
-      const int m = m0 + e / (F_JT / 4);
-      const long long j = j0 + 4 * (e % (F_JT / 4));
-      // jend is a multiple of 4 (N4 and the split are)
-      ra[it] = (m < M && j < jend) ? *reinterpret_cast<const uint32_t*>(
-                                         packed + (long long)m * N4 + j)
-                                   : 0u;
-    }
+    for (int ti = 0; ti < T::MT; ++ti)
 #pragma unroll
-    for (int it = 0; it < B_IT; ++it) {
-      const int e = threadIdx.x + it * THREADS;
-      const long long j = j0 + e / CQ;
-      const int8_t* src = d4 + j * C + c0 + 4 * (e % CQ);
+      for (int rh = 0; rh < 2; ++rh) {
+        const int row = 64 * (wgi * T::MT + ti) + 16 * warp + 8 * rh + g;
+        const uint2 w =
+            *reinterpret_cast<const uint2*>(pa + row * F_JS + 8 * t);
 #pragma unroll
-      for (int p = 0; p < 4; ++p)
-        rb[it][p] = j < jend ? *reinterpret_cast<const uint32_t*>(
-                                   src + (long long)p * N4 * C)
-                             : 0u;
-    }
-  };
-  // ... then spread into A and transposed into B in shared memory
-  auto stash = [&]() {
-#pragma unroll
-    for (int it = 0; it < A_IT; ++it) {
-      const int e = threadIdx.x + it * THREADS;
-      const uint32_t x = ra[it];
-      *reinterpret_cast<uint4*>(&as[e / (F_JT / 4)][4 * (e % (F_JT / 4))]) =
-          make_uint4(spread_planes(x & 0xFFu), spread_planes((x >> 8) & 0xFFu),
-                     spread_planes((x >> 16) & 0xFFu), spread_planes(x >> 24));
-    }
-#pragma unroll
-    for (int it = 0; it < B_IT; ++it) {
-      const int e = threadIdx.x + it * THREADS;
-      *reinterpret_cast<uint4*>(&bs[e / CQ][4 * (e % CQ)]) =
-          transpose4(rb[it][0], rb[it][1], rb[it][2], rb[it][3]);
-    }
-  };
-
-  int acc[F_MT][F_NT][4];
-#pragma unroll
-  for (int i = 0; i < F_MT; ++i)
-#pragma unroll
-    for (int n = 0; n < F_NT; ++n)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][n][k] = 0;
-
-  if (jbeg < jend) fetch(jbeg);
-  for (long long j0 = jbeg; j0 < jend; j0 += F_JT) {
-    stash();
-    __syncthreads();
-    if (j0 + F_JT < jend) fetch(j0 + F_JT);   // in flight during the mmas
-
-#pragma unroll
-    for (int ks = 0; ks < F_JT; ks += F_KS) {
-      uint32_t b[F_NT][2];
-#pragma unroll
-      for (int n = 0; n < F_NT; ++n) {
-        b[n][0] = bs[ks + t][wc + 8 * n + g];
-        b[n][1] = bs[ks + 4 + t][wc + 8 * n + g];
+        for (int wi = 0; wi < 2; ++wi) {
+          const uint32_t x = wi ? w.y : w.x;
+          // word k: the four planes of byte column 8t + 4wi + k
+          const uint4 q = transpose4(x & LOW2, (x >> 2) & LOW2,
+                                     (x >> 4) & LOW2, (x >> 6) & LOW2);
+          a[2 * wi][ti][rh] = q.x;
+          a[2 * wi][ti][rh + 2] = q.y;
+          a[2 * wi + 1][ti][rh] = q.z;
+          a[2 * wi + 1][ti][rh + 2] = q.w;
+        }
       }
 #pragma unroll
-      for (int i = 0; i < F_MT; ++i) {
-        const int r = wr + 16 * i + g;
-        const uint32_t a0 = as[r][ks + t], a1 = as[r + 8][ks + t];
-        const uint32_t a2 = as[r][ks + 4 + t], a3 = as[r + 8][ks + 4 + t];
+    for (int ti = 0; ti < T::MT; ++ti) wg::fence_operand(acc[ti]);
+    wg::fence();
+    const uint64_t desc = wg::desc_sw128(wg::smem_u32(r.b + s * T::B_BYTES));
 #pragma unroll
-        for (int n = 0; n < F_NT; ++n)
-          mma_s8(acc[i][n], a0, a1, a2, a3, b[n][0], b[n][1]);
-      }
-    }
-    __syncthreads();
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int ti = 0; ti < T::MT; ++ti)
+        wg::mma(acc[ti], a[ks][ti], desc + 2 * ks);
+    wg::commit();
+    wg::wait_all();
+#pragma unroll
+    for (int ti = 0; ti < T::MT; ++ti) wg::fence_operand(acc[ti]);
+    if (lane == 0) wg::mbar_arrive(&r.empty[s]);
+    if (++s == S) { s = 0; ph ^= 1; }
   }
 
 #pragma unroll
-  for (int i = 0; i < F_MT; ++i)
+  for (int ti = 0; ti < T::MT; ++ti)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wr + 16 * i + 8 * h + g;
+    for (int rh = 0; rh < 2; ++rh) {
+      const int m = m0 + 64 * (wgi * T::MT + ti) + 16 * warp + 8 * rh + g;
       if (m >= M) continue;
+      int* o = out + (long long)m * C + c0 + 2 * t;
 #pragma unroll
-      for (int n = 0; n < F_NT; ++n) {
-        int* o = out + (long long)m * C + c0 + wc + 8 * n + 2 * t;
-        atomicAdd(o, acc[i][n][2 * h]);
-        atomicAdd(o + 1, acc[i][n][2 * h + 1]);
+      for (int q = 0; q < BN / 8; ++q) {
+        atomicAdd(o + 8 * q, acc[ti][4 * q + 2 * rh]);
+        atomicAdd(o + 8 * q + 1, acc[ti][4 * q + 2 * rh + 1]);
       }
     }
 }
 
-// B2.  k is the variant: one word holds four consecutive variants, so the
-// mma's k = 32 is 8 variant quads.  An m16 tile is 16 byte columns of one
-// plane.
-__global__ void __launch_bounds__(THREADS, 2)
-plane_dot_t_kernel(const uint8_t* __restrict__ packed,
-                   const int8_t* __restrict__ dm, int* __restrict__ out,
-                   int M, long long N4, int C) {
-  // A, quad q: word p * T_JW + jj holds plane p's codes of variants
-  // mb + 4q .. mb + 4q + 3 at byte column jb + jj
-  __shared__ __align__(16) uint32_t as[T_MQ][T_AS];        // 17 KB
-  // B, quad q: word c holds dm[mb + 4q .. +3, c0 + c]
-  __shared__ __align__(16) uint32_t bs[T_MQ][T_BS];        // 17 KB
-  constexpr int A_IT = T_MQ * (T_JW / 4) / THREADS;   // (quad, 4 columns)s
-  constexpr int B_IT = T_MQ * CQ / THREADS;           // (quad, column quad)s
-  static_assert(A_IT == 1, "one quad of rows x four byte columns a thread");
+// B2: a block owns JB byte columns (4 JB output rows) x BN columns and
+// walks all variants.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+plane_dot_t_kernel(const __grid_constant__ CUtensorMap tm_packed,
+                   const __grid_constant__ CUtensorMap tm_operand,
+                   int* __restrict__ out, long long N4, int C, int n_stages) {
+  using T = Tile<BN>;
+  constexpr int S = T::T_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const Ring r = ring<S>(smem_raw, T::B_BYTES, T::T_A_BYTES);
+  const int jb = blockIdx.x * T::JB;
+  const int c0 = blockIdx.y * BN;
+  const int wgi = threadIdx.x / 128;
 
+  if (wgi == CONSUMERS) {                  // the producer
+    wg::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x % 128 == 0) {
+      wg::tma_prefetch_map(&tm_packed);
+      wg::tma_prefetch_map(&tm_operand);
+      for (int it = 0, s = 0, ph = 0; it < n_stages; ++it) {
+        wg::mbar_wait(&r.empty[s], ph ^ 1);
+        wg::mbar_expect_tx(&r.full[s], T::B_BYTES + T::T_A_BYTES);
+        wg::tma_load_2d(r.b + s * T::B_BYTES, &tm_operand, &r.full[s],
+                        T_VS * it, c0);
+#pragma unroll
+        for (int sub = 0; sub < T::MT; ++sub)
+          wg::tma_load_2d(r.a + s * T::T_A_BYTES + sub * T_VS * T_JS,
+                          &tm_packed, &r.full[s], jb + T_JS * sub, T_VS * it);
+        if (++s == S) { s = 0; ph ^= 1; }
+      }
+    }
+    return;
+  }
+
+  wg::setmaxnreg_inc<CONSUMER_REGS>();
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int warp = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int wr = (warp / (TC / T_WN)) * T_WM;   // warp's first output row
-  const int wc = (warp % (TC / T_WN)) * T_WN;   // warp's first column
-  const long long jb = (long long)blockIdx.x * T_JW;
-  const int c0 = blockIdx.y * TC;
-  const int q_a = threadIdx.x / (T_JW / 4);     // the thread's A quad
-  const int jq_a = 4 * (threadIdx.x % (T_JW / 4));
-  const long long j_a = jb + jq_a;
+  // the warpgroup's packed sub-tile and first plane (see the header)
+  const int sub = wgi * T::MT / 2;
+  const int plane0 = (wgi * 2 * T::MT) % 4;
+  const int jj = T_JS * sub + 4 * g + warp;     // byte column in the block
+  int acc[T::MT][BN / 2];
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int k = 0; k < BN / 2; ++k) acc[i][k] = 0;
 
-  // One stage's global reads, held in registers while the previous stage
-  // computes: four variants' bytes at four byte columns (A) and four
-  // variants' slices at four columns (B).  Rows past M and byte columns
-  // past N4 read as code 0.
-  uint32_t ra[4], rb[B_IT][4];
-  auto fetch = [&](int mb) {
-    const int m = mb + 4 * q_a;
+  for (int it = 0, s = 0, ph = 0; it < n_stages; ++it) {
+    wg::mbar_wait(&r.full[s], ph);
+    const uint8_t* pa = r.a + s * T::T_A_BYTES + sub * T_VS * T_JS +
+                        t * T_JS + 4 * g + warp;
+    uint32_t a[4][T::MT][4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k)    // N4 is a multiple of 4
-      ra[k] = (m + k < M && j_a < N4) ? *reinterpret_cast<const uint32_t*>(
-                                            packed + (long long)(m + k) * N4 +
-                                            j_a)
-                                      : 0u;
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t v[2];       // byte i: variant 32 ks + 16 h + 4 i + t
 #pragma unroll
-    for (int it = 0; it < B_IT; ++it) {
-      const int e = threadIdx.x + it * THREADS;
-      const int m = mb + 4 * (e / CQ);
-      const int8_t* src = dm + (long long)m * C + c0 + 4 * (e % CQ);
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        rb[it][k] = m + k < M ? *reinterpret_cast<const uint32_t*>(
-                                    src + (long long)k * C)
-                              : 0u;
-    }
-  };
-  // ... then transposed to one word of four variants per byte column and
-  // split into plane words (A), and transposed (B), in shared memory
-  auto stash = [&]() {
-    const uint4 x = transpose4(ra[0], ra[1], ra[2], ra[3]);
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-      *reinterpret_cast<uint4*>(&as[q_a][p * T_JW + jq_a]) = make_uint4(
-          (x.x >> (2 * p)) & 0x03030303u, (x.y >> (2 * p)) & 0x03030303u,
-          (x.z >> (2 * p)) & 0x03030303u, (x.w >> (2 * p)) & 0x03030303u);
-#pragma unroll
-    for (int it = 0; it < B_IT; ++it) {
-      const int e = threadIdx.x + it * THREADS;
-      *reinterpret_cast<uint4*>(&bs[e / CQ][4 * (e % CQ)]) =
-          transpose4(rb[it][0], rb[it][1], rb[it][2], rb[it][3]);
-    }
-  };
-
-  int acc[T_MT][T_NT][4];
-#pragma unroll
-  for (int i = 0; i < T_MT; ++i)
-#pragma unroll
-    for (int n = 0; n < T_NT; ++n)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][n][k] = 0;
-
-  fetch(0);
-  for (int mb = 0; mb < M; mb += 4 * T_MQ) {
-    stash();
-    __syncthreads();
-    if (mb + 4 * T_MQ < M) fetch(mb + 4 * T_MQ);   // in flight during mmas
-
-#pragma unroll
-    for (int ks = 0; ks < T_MQ; ks += T_KQ) {
-      uint32_t b[T_NT][2];
-#pragma unroll
-      for (int n = 0; n < T_NT; ++n) {
-        b[n][0] = bs[ks + t][wc + 8 * n + g];
-        b[n][1] = bs[ks + 4 + t][wc + 8 * n + g];
+      for (int h = 0; h < 2; ++h) {
+        const uint8_t* p = pa + (32 * ks + 16 * h) * T_JS;
+        v[h] = (uint32_t)p[0] | ((uint32_t)p[4 * T_JS] << 8) |
+               ((uint32_t)p[8 * T_JS] << 16) | ((uint32_t)p[12 * T_JS] << 24);
       }
 #pragma unroll
-      for (int i = 0; i < T_MT; ++i) {
-        const int r = wr + 16 * i + g;
-        const uint32_t a0 = as[ks + t][r], a1 = as[ks + t][r + 8];
-        const uint32_t a2 = as[ks + 4 + t][r], a3 = as[ks + 4 + t][r + 8];
-#pragma unroll
-        for (int n = 0; n < T_NT; ++n)
-          mma_s8(acc[i][n], a0, a1, a2, a3, b[n][0], b[n][1]);
+      for (int ti = 0; ti < T::MT; ++ti) {
+        const int pl = plane0 + 2 * ti;
+        a[ks][ti][0] = (v[0] >> (2 * pl)) & LOW2;
+        a[ks][ti][1] = (v[0] >> (2 * pl + 2)) & LOW2;
+        a[ks][ti][2] = (v[1] >> (2 * pl)) & LOW2;
+        a[ks][ti][3] = (v[1] >> (2 * pl + 2)) & LOW2;
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int ti = 0; ti < T::MT; ++ti) wg::fence_operand(acc[ti]);
+    wg::fence();
+    const uint64_t desc =
+        wg::desc_sw128(wg::smem_u32(r.b + s * T::B_BYTES));
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int ti = 0; ti < T::MT; ++ti)
+        wg::mma(acc[ti], a[ks][ti], desc + 2 * ks);
+    wg::commit();
+    wg::wait_all();
+#pragma unroll
+    for (int ti = 0; ti < T::MT; ++ti) wg::fence_operand(acc[ti]);
+    if (lane == 0) wg::mbar_arrive(&r.empty[s]);
+    if (++s == S) { s = 0; ph ^= 1; }
   }
 
+  const long long j = (long long)jb + jj;
+  if (j >= N4) return;
 #pragma unroll
-  for (int i = 0; i < T_MT; ++i) {
-    const int p = (wr + 16 * i) / T_JW;
+  for (int ti = 0; ti < T::MT; ++ti)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long j = jb + (wr + 16 * i) % T_JW + 8 * h + g;
-      if (j >= N4) continue;
-      int* o = out + ((long long)p * N4 + j) * C + c0 + wc + 2 * t;
+    for (int rh = 0; rh < 2; ++rh) {
+      const int p = plane0 + 2 * ti + rh;
+      int* o = out + ((long long)p * N4 + j) * C + c0 + 2 * t;
 #pragma unroll
-      for (int n = 0; n < T_NT; ++n)
-        *reinterpret_cast<int2*>(o + 8 * n) =
-            make_int2(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
+      for (int q = 0; q < BN / 8; ++q)
+        *reinterpret_cast<int2*>(o + 8 * q) =
+            make_int2(acc[ti][4 * q + 2 * rh], acc[ti][4 * q + 2 * rh + 1]);
     }
+}
+
+// B1's operand from the slices' sample rows: rows int8 [n, rs] (row
+// p N4 + j is byte column j of plane p) -> d4k int8 [C, 4 N4p] in the
+// kernel's k order (see the header), zero at positions of no sample and at
+// columns c >= rs.  A block transposes one 128-byte group G of d4k for
+// up to LAYOUT_COLS columns (C < 64: all C) through shared memory: it
+// reads the group's 4 x 32 rows (bytes of a row consecutive across
+// threads) and writes each column's 128 bytes consecutively.
+constexpr int LAYOUT_COLS = 64;
+constexpr int LAYOUT_THREADS = 256;
+
+__global__ void __launch_bounds__(LAYOUT_THREADS)
+fwd_rows_layout_kernel(const int8_t* __restrict__ rows,
+                       int8_t* __restrict__ d4k, long long n, int rs,
+                       long long N4, long long N4p, int C) {
+  __shared__ int8_t tile[KB][LAYOUT_COLS + 1];
+  const long long G = blockIdx.x;
+  const int c0 = blockIdx.y * LAYOUT_COLS;
+  const int cols = min(LAYOUT_COLS, C - c0);      // this block's columns
+  for (int i = threadIdx.x; i < KB * cols; i += LAYOUT_THREADS) {
+    const int r = i / cols, cc = i % cols;
+    const int p = r / F_JS, jj = r % F_JS;          // plane, byte column
+    const long long j = F_JS * G + jj;
+    const long long sample = p * N4 + j;
+    const int c = c0 + cc;
+    int8_t v = 0;
+    if (j < N4 && sample < n && c < rs) v = rows[sample * rs + c];
+    // byte column jj = 8t + 2s + h of the group sits at 32s + 16h + 4t + p
+    const int t = jj / 8, st = (jj % 8) / 2, h = jj % 2;
+    tile[32 * st + 16 * h + 4 * t + p][cc] = v;
   }
+  __syncthreads();
+  for (int i = threadIdx.x; i < KB * cols; i += LAYOUT_THREADS) {
+    const int cc = i / KB, pos = i % KB;
+    d4k[(long long)(c0 + cc) * 4 * N4p + KB * G + pos] = tile[pos][cc];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the CUDA runtime (no
+// link against libcuda; the runtime call needs CUDA 12.5 or later).
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D uint8 tensor map: ``rows`` rows of ``cols`` bytes, ``stride`` bytes
+// apart, read in boxes of box_cols x box_rows with ``swizzle``.
+cudaError_t encode(CUtensorMap* map, const void* base, long long cols,
+                   long long rows, long long stride, int box_cols,
+                   int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Rows ``row_bytes`` apart from ``base`` that do not start 16-byte aligned
+// (a tensor map's rule).
+bool misaligned(const void* base, long long row_bytes) {
+  return row_bytes % 16 != 0 || reinterpret_cast<uintptr_t>(base) % 16 != 0;
+}
+
+// A column tile the kernels instantiate that divides C.
+bool valid_tile(long long C, int bn) {
+  return (bn == 16 || bn == 32 || bn == 64 || bn == 128 || bn == 256) &&
+         C > 0 && C % bn == 0;
+}
+
+template <int BN>
+cudaError_t launch_fwd(const void* packed, const void* d4k, int* out,
+                       long long M, long long N4, long long C, int device,
+                       cudaStream_t s) {
+  using T = Tile<BN>;
+  const long long N4p = (N4 + F_JS - 1) / F_JS * F_JS;
+  CUtensorMap tp, ts;
+  cudaError_t err = encode(&tp, packed, N4, M, N4, F_JS, T::BM,
+                           CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  err = encode(&ts, d4k, 4 * N4p, C, 4 * N4p, KB, BN,
+               CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const int smem = T::smem_bytes(T::F_STAGES, T::F_A_BYTES);
+  err = cudaFuncSetAttribute(plane_dot_fwd_kernel<BN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // split the byte-column groups so that the blocks (one per SM) fill the
+  // card about once
+  dim3 grid((unsigned)((M + T::BM - 1) / T::BM), (unsigned)(C / BN), 1u);
+  const long long groups = N4p / F_JS;
+  const long long tiles = (long long)grid.x * grid.y;
+  long long splits = sms / tiles;
+  splits = splits < 1 ? 1 : (splits > groups ? groups : splits);
+  const long long per = (groups + splits - 1) / splits;
+  grid.z = (unsigned)((groups + per - 1) / per);
+  plane_dot_fwd_kernel<BN><<<grid, THREADS, smem, s>>>(
+      tp, ts, out, (int)M, (int)C, (int)groups, (int)per);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_t(const void* packed, const void* dmt, int* out,
+                     long long M, long long N4, long long C,
+                     cudaStream_t s) {
+  using T = Tile<BN>;
+  const long long M16 = (M + 15) / 16 * 16;
+  CUtensorMap tp, to;
+  cudaError_t err = encode(&tp, packed, N4, M, N4, T_JS, T_VS,
+                           CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  err = encode(&to, dmt, M16, C, M16, T_VS, BN, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const int smem = T::smem_bytes(T::T_STAGES, T::T_A_BYTES);
+  err = cudaFuncSetAttribute(plane_dot_t_kernel<BN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((N4 + T::JB - 1) / T::JB), (unsigned)(C / BN),
+                  1u);
+  plane_dot_t_kernel<BN><<<grid, THREADS, smem, s>>>(
+      tp, to, out, N4, (int)C, (int)((M + T_VS - 1) / T_VS));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Rows of ``packed`` that do not start 4-byte aligned.
-static bool misaligned(const void* packed, long long N4) {
-  return N4 % 4 != 0 || reinterpret_cast<uintptr_t>(packed) % 4 != 0;
-}
-
-// B1: zero ``out`` (int32 [M, C]) and launch on ``stream``.  C must be a
-// multiple of 128, N4 of 4, and every pointer 4-byte aligned (the caller
-// checks; misaligned rows return cudaErrorInvalidValue).  Returns the CUDA
-// error code of the launch (0 = success).
-extern "C" int sg_plane_dot_fwd(const void* packed, const void* d4, void* out,
-                                long long M, long long N4, long long C,
-                                int device, void* stream) {
-  if (misaligned(packed, N4)) return (int)cudaErrorInvalidValue;
+// B1: zero ``out`` (int32 [M, C]) and launch on ``stream`` with column
+// tiles of ``bn``.  ``d4k`` is the slices in the kernel's order, int8
+// [C, 4 N4p] (see the header; sg_plane_dot_fwd_layout), 16-byte
+// aligned.  ``bn`` is 16, 32, 64, 128 or 256 and divides C; N4 is a
+// multiple of 16 with ``packed`` 16-byte aligned; else
+// cudaErrorInvalidValue.  Returns the CUDA error code of the launch (0 =
+// success).
+extern "C" int sg_plane_dot_fwd(const void* packed, const void* d4k,
+                                void* out, long long M, long long N4,
+                                long long C, int bn, int device,
+                                void* stream) {
+  if (misaligned(packed, N4) || misaligned(d4k, 0) || !valid_tile(C, bn))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   err = cudaMemsetAsync(out, 0, (size_t)M * (size_t)C * sizeof(int), s);
-  if (err != cudaSuccess || M == 0 || N4 == 0 || C == 0) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || M == 0 || N4 == 0) return (int)err;
+  int* o = static_cast<int*>(out);
+  switch (bn) {
+    case 16: return (int)launch_fwd<16>(packed, d4k, o, M, N4, C, device, s);
+    case 32: return (int)launch_fwd<32>(packed, d4k, o, M, N4, C, device, s);
+    case 64: return (int)launch_fwd<64>(packed, d4k, o, M, N4, C, device, s);
+    case 128: return (int)launch_fwd<128>(packed, d4k, o, M, N4, C, device, s);
+    default: return (int)launch_fwd<256>(packed, d4k, o, M, N4, C, device, s);
+  }
+}
 
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, plane_dot_fwd_kernel, THREADS, 0);
+// B1's operand from the slices' sample rows (fwd_rows_layout_kernel):
+// ``rows`` int8 [n, rs] row-major -> ``d4k`` int8 [C, 4 N4p], every byte
+// written, on ``stream``.  Needs rs <= C and n <= 4 N4, else
+// cudaErrorInvalidValue.  Returns the CUDA error code of the launch (0 =
+// success).
+extern "C" int sg_plane_dot_fwd_layout(const void* rows, void* d4k,
+                                       long long n, long long rs,
+                                       long long N4, long long C, int device,
+                                       void* stream) {
+  if (rs > C || n > 4 * N4 || C <= 0 || N4 <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-
-  dim3 grid((unsigned)((M + F_TB - 1) / F_TB), (unsigned)(C / TC), 1u);
-  // split the byte columns so that the blocks fill the resident slots
-  // about once (the slots' floor: no half-empty last wave)
-  const long long tiles = (long long)grid.x * grid.y;
-  const long long stages = (N4 + F_JT - 1) / F_JT;
-  long long splits = (long long)per_sm * sms / tiles;
-  splits = splits < 1 ? 1 : (splits > stages ? stages : splits);
-  const long long stages_per = (stages + splits - 1) / splits;
-  grid.z = (unsigned)((stages + stages_per - 1) / stages_per);
-  plane_dot_fwd_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const int8_t*>(d4),
-      static_cast<int*>(out), (int)M, N4, (int)C, stages_per * F_JT);
+  const long long N4p = (N4 + F_JS - 1) / F_JS * F_JS;
+  const dim3 grid((unsigned)(N4p / F_JS),
+                  (unsigned)((C + LAYOUT_COLS - 1) / LAYOUT_COLS), 1u);
+  fwd_rows_layout_kernel<<<grid, LAYOUT_THREADS, 0,
+                           reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(rows), static_cast<int8_t*>(d4k), n,
+      (int)rs, N4, N4p, (int)C);
   return (int)cudaGetLastError();
 }
 
-// B2: write ``out`` (int32 [4, N4, C]) on ``stream``; every element is
-// written, so nothing is zeroed.  C must be a multiple of 128, N4 of 4,
-// ``packed`` and ``dm`` 4-byte and ``out`` 16-byte aligned (the caller
-// checks; misaligned rows return cudaErrorInvalidValue).  Returns the CUDA
-// error code of the launch (0 = success).
-extern "C" int sg_plane_dot_t(const void* packed, const void* dm, void* out,
-                              long long M, long long N4, long long C,
+// B2: write ``out`` (int32 [4, N4, C]) on ``stream`` with column tiles of
+// ``bn``; every element is written, so nothing is zeroed.  ``dmt`` is the
+// operand in the kernel's layout, int8 [C, M16] (see the header), 16-byte
+// aligned.  ``bn``, C, N4 and ``packed`` as for B1, else
+// cudaErrorInvalidValue.  Returns the CUDA error code of the launch (0 =
+// success).
+extern "C" int sg_plane_dot_t(const void* packed, const void* dmt, void* out,
+                              long long M, long long N4, long long C, int bn,
                               int device, void* stream) {
-  if (misaligned(packed, N4)) return (int)cudaErrorInvalidValue;
+  if (misaligned(packed, N4) || misaligned(dmt, 0) || !valid_tile(C, bn))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (N4 == 0 || C == 0) return 0;
+  if (N4 == 0) return 0;
   if (M == 0)
     return (int)cudaMemsetAsync(out, 0, 4 * (size_t)N4 * (size_t)C *
                                 sizeof(int), s);
-  dim3 grid((unsigned)((N4 + T_JW - 1) / T_JW), (unsigned)(C / TC), 1u);
-  plane_dot_t_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const int8_t*>(dm),
-      static_cast<int*>(out), (int)M, N4, (int)C);
-  return (int)cudaGetLastError();
+  int* o = static_cast<int*>(out);
+  switch (bn) {
+    case 16: return (int)launch_t<16>(packed, dmt, o, M, N4, C, s);
+    case 32: return (int)launch_t<32>(packed, dmt, o, M, N4, C, s);
+    case 64: return (int)launch_t<64>(packed, dmt, o, M, N4, C, s);
+    case 128: return (int)launch_t<128>(packed, dmt, o, M, N4, C, s);
+    default: return (int)launch_t<256>(packed, dmt, o, M, N4, C, s);
+  }
 }

@@ -11,9 +11,9 @@ The GRM is ``G_std' G_std / M`` with ``s(c) = (c - 2 af) * inv`` for codes
 ``c`` in {0, 1, 2} and ``s(missing) = 0``.  The store keeps the codes 2-bit
 planar-packed with missing zeroed (0.25 B/genotype, the reference's
 footprint) as one contiguous ``[M, N4]`` uint8 tensor, N4 =
-:func:`store_width` (ceil(N/4) rounded up to a multiple of 4, so that every
-row starts 4-byte aligned for kernels B1 and B2; the extra byte columns
-are padding samples of code 0), so
+:func:`store_width` (ceil(N/4) rounded up to a multiple of 16, so that
+every row starts 16-byte aligned for kernels B1 and B2; the extra byte
+columns are padding samples of code 0), so
 
     G_std @ v = diag(inv) @ (Cm @ v - 2 af * (mask @ v))
 
@@ -73,10 +73,11 @@ def pack_codes_2bit(codes: np.ndarray) -> np.ndarray:
 
 def store_width(n_samples: int) -> int:
     """Byte columns N4 of the GRM store for ``n_samples``: ceil(N/4)
-    rounded up to a multiple of 4 (at most 3 more than the scan's
-    ``pack_codes_2bit``), so that every packed row starts 4-byte aligned
-    and kernels B1 and B2 load four byte columns of a row as one word."""
-    return 4 * -(-int(n_samples) // 16)
+    rounded up to a multiple of 16 (at most 15 more than the scan's
+    ``pack_codes_2bit``), so that every packed row starts 16-byte aligned,
+    as the TMA tensor map through which kernels B1 and B2 read the store
+    requires."""
+    return 16 * -(-int(n_samples) // 64)
 
 
 def unpack_codes_2bit(packed: np.ndarray, n_samples: int) -> np.ndarray:
@@ -380,8 +381,9 @@ def build_packed2_grm_streamed(block_iter, n_samples: int, n_variants: int,
 
 def kernel_cols(R: int) -> int:
     """Columns C of kernels B1 and B2 in a product of R right-hand sides:
-    their N_SLICES slices each, padded to a multiple of 128."""
-    return -(-R * N_SLICES // 128) * 128
+    their N_SLICES slices each, padded to a column count the kernels run
+    (``grm_kernel.padded_cols``)."""
+    return grm_kernel.padded_cols(R * N_SLICES)
 
 
 def _slice_weights(scale: torch.Tensor, S: int) -> torch.Tensor:
@@ -397,19 +399,6 @@ def _pad_cols(x: torch.Tensor, C: int) -> torch.Tensor:
     out = x.new_zeros(*x.shape[:-1], C)
     out[..., :x.shape[-1]] = x
     return out
-
-
-def fwd_partial(packed: torch.Tensor, d_rows: torch.Tensor,
-                C: int) -> torch.Tensor:
-    """One store's pass 1: its samples' slice rows ``d_rows`` int8 [n, RS]
-    laid out planar for the store's width N4 (zero-padded to 4 N4 rows and
-    to ``C`` columns) and sent to its device, then kernel B1 -> f64 exact
-    integers [M, C] on the store's device."""
-    N4 = packed.shape[1]
-    d4 = d_rows.new_zeros(4 * N4, C)
-    d4[:d_rows.shape[0], :d_rows.shape[1]] = d_rows
-    return grm_kernel.plane_dot_fwd(packed, d4.to(packed.device)
-                                    .view(4, N4, C))
 
 
 def t_rows(out4: torch.Tensor, n: int) -> torch.Tensor:
@@ -428,7 +417,8 @@ def ranges_fwd(stores, d_rows: torch.Tensor, C: int,
     2^53)."""
     parts, n0 = [], 0
     for packed, n in stores:
-        parts.append(fwd_partial(packed, d_rows[n0:n0 + n], C))
+        parts.append(grm_kernel.plane_dot_fwd_rows(packed, d_rows[n0:n0 + n],
+                                                    C))
         n0 += n
     acc = parts[0].to(out)
     for p in parts[1:]:

@@ -88,7 +88,7 @@ if mode == "product":
                                  mesh)
         lo, hi = h.ranges[rank]
         assert len(h.stores) == 1 and h.store_bytes[0] == \
-            M * 4 * -(-(hi - lo) // 16)
+            M * 16 * -(-(hi - lo) // 64)
         if rank == 0:
             for R in (1, 30):
                 out[f"{build}_{R}"] = h.matvec(

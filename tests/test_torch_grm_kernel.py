@@ -17,8 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_mma import _G, _T, _mma_m16n8k32, _pad, _spread_planes, \
+from test_torch_mma import _bytes, _G as _G8, _T as _T4, _mma_m16n8k32, \
     _words
+from test_torch_wgmma import _G, _T, _W, desc_read, tma_write, wgmma_m64nNk32
 from saigegds_tpu_torch.ops import grm_kernel
 from saigegds_tpu_torch.ops.packed_grm import store_width
 
@@ -154,56 +155,140 @@ def test_wrappers_reject(kernel, bad):
         fn(packed, rhs)
 
 
-# The kernels' fragment maps (the mma itself is emulated in test_torch_mma).
+# The kernels' tiling and fragment maps (the warpgroup MMA and the swizzled
+# tiles are emulated in test_torch_wgmma), mirroring csrc/plane_dot.cu.
+
+LOW2 = np.uint32(0x03030303)
 
 
-def _fwd_by_fragments(packed: np.ndarray, d4: np.ndarray) -> np.ndarray:
-    """B1 as the kernel contracts it: k ordered (byte column j, plane p),
-    one mma per 16 variants x 8 byte columns x 8 columns."""
-    M, C = packed.shape[0], d4.shape[2]
-    aw = _spread_planes(_pad(_pad(packed, 0, 16), 1, 8))    # [Mp, N4p]
-    bw = _words(_pad(d4, 1, 8))                             # [N4p, C]
-    out = np.zeros((aw.shape[0], C), np.int64)
-    for ks in range(0, aw.shape[1], 8):
-        for r in range(0, aw.shape[0], 16):
-            a = np.stack([aw[r + _G, ks + _T], aw[r + _G + 8, ks + _T],
-                          aw[r + _G, ks + 4 + _T],
-                          aw[r + _G + 8, ks + 4 + _T]], axis=1)
-            for c in range(0, C, 8):
-                b = np.stack([bw[ks + _T, c + _G], bw[ks + 4 + _T, c + _G]],
-                             axis=1)
-                d = _mma_m16n8k32(a, b)
-                for h in range(2):
-                    out[r + _G + 8 * h, c + 2 * _T] += d[:, 2 * h]
-                    out[r + _G + 8 * h, c + 2 * _T + 1] += d[:, 2 * h + 1]
+def _tiling(C: int):
+    """Column tile, m64 tiles per consumer warpgroup, B1's variants and
+    B2's byte columns per block."""
+    bn = grm_kernel.column_tile(C)
+    mt = 1 if bn == 256 else 2
+    return bn, mt, 128 * mt, 32 * mt
+
+
+def _transpose4(w0, w1, w2, w3):
+    """``int8_mma.cuh`` ``transpose4``: word k holds byte k of w0 .. w3."""
+    b = _bytes(np.stack([w0, w1, w2, w3], axis=-1)).astype(np.uint8)
+    return [_words(np.moveaxis(b[..., :, k], -1, 0)) for k in range(4)]
+
+
+def _stage_b(op: np.ndarray, c0: int, bn: int, k0: int):
+    """A stage's slice tile through shared memory: TMA's box of ``bn`` rows
+    x 128 bytes at (k0, c0), zero past the operand, written with the
+    128-byte swizzle; its four k32 steps as the descriptor reads them."""
+    box = np.zeros((bn, 128), np.int8)
+    part = op[c0:c0 + bn, k0:k0 + 128]
+    box[:part.shape[0], :part.shape[1]] = part
+    smem = tma_write(box)
+    return [desc_read(smem, 32 * ks, bn) for ks in range(4)]
+
+
+def _fwd_by_fragments(packed: np.ndarray, d4: np.ndarray,
+                      op: np.ndarray = None) -> np.ndarray:
+    """B1 as kernel B1 contracts it: the store and the slices padded to a
+    width N4 of 16 byte columns (as the store is on the card), the slices
+    in the kernel's order (``fwd_rows_operand``, or ``op`` when given,
+    for a store already that wide), stages of 32 byte columns,
+    each consumer warpgroup's A fragments built from its rows' 8 bytes at
+    byte column 8t, one wgmma m64nNk32 per k-step and m64 tile, the
+    epilogue's rows and columns."""
+    M, n4 = packed.shape
+    C = d4.shape[2]
+    N4 = -(-n4 // 16) * 16
+    packed = np.pad(packed, ((0, 0), (0, N4 - n4)))
+    d4 = np.pad(d4, ((0, 0), (0, N4 - n4), (0, 0)))
+    bn, mt, bm, _ = _tiling(C)
+    if op is None:
+        op = grm_kernel.fwd_rows_operand(
+            torch.from_numpy(d4.reshape(4 * N4, C)), N4, C, "cpu").numpy()
+    n4p = op.shape[1] // 4
+    pk = np.zeros((-(-M // bm) * bm, n4p), np.uint8)     # TMA's zero fill
+    pk[:M, :N4] = packed
+    out = np.zeros((pk.shape[0], C), np.int64)
+    for m0 in range(0, pk.shape[0], bm):
+        for c0 in range(0, C, bn):
+            acc = np.zeros((2, mt, 128, bn // 2), np.int64)
+            for grp in range(n4p // 32):
+                tile = pk[m0:m0 + bm, 32 * grp:32 * grp + 32]
+                b = _stage_b(op, c0, bn, 128 * grp)
+                for wgi in range(2):
+                    a = np.zeros((4, mt, 128, 4), np.uint32)
+                    for ti in range(mt):
+                        for rh in range(2):
+                            row = 64 * (wgi * mt + ti) + 16 * _W + 8 * rh + _G
+                            w8 = tile[row[:, None], 8 * _T[:, None]
+                                      + np.arange(8)]
+                            for wi in range(2):
+                                x = _words(w8[:, 4 * wi:4 * wi + 4].T)
+                                q = _transpose4(x & LOW2, (x >> 2) & LOW2,
+                                                (x >> 4) & LOW2,
+                                                (x >> 6) & LOW2)
+                                a[2 * wi, ti, :, rh] = q[0]
+                                a[2 * wi, ti, :, rh + 2] = q[1]
+                                a[2 * wi + 1, ti, :, rh] = q[2]
+                                a[2 * wi + 1, ti, :, rh + 2] = q[3]
+                    for ks in range(4):
+                        for ti in range(mt):
+                            acc[wgi, ti] += wgmma_m64nNk32(a[ks, ti], b[ks])
+            for wgi in range(2):
+                for ti in range(mt):
+                    for rh in range(2):
+                        m = m0 + 64 * (wgi * mt + ti) + 16 * _W + 8 * rh + _G
+                        for q in range(bn // 8):
+                            for e in range(2):
+                                out[m, c0 + 8 * q + 2 * _T + e] += \
+                                    acc[wgi, ti, :, 4 * q + 2 * rh + e]
     return out[:M]
 
 
 def _t_by_fragments(packed: np.ndarray, dm: np.ndarray) -> np.ndarray:
-    """B2 as the kernel contracts it: output rows (plane p, byte column j),
-    an m16 tile being 16 byte columns of one plane; k is the variant, one
-    word per four consecutive variants."""
-    N4, C = packed.shape[1], dm.shape[1]
-    pk = _pad(_pad(packed, 0, 32), 1, 16)
-    x = _words(pk.reshape(-1, 4, pk.shape[1]).transpose(1, 0, 2))  # [Q, N4p]
-    aw = np.stack([(x >> (2 * p)) & 0x03030303 for p in range(4)])
-    bw = _words(_pad(dm, 0, 32).reshape(-1, 4, C).transpose(1, 0, 2))
-    out = np.zeros((4, aw.shape[2], C), np.int64)
-    for kq in range(0, aw.shape[1], 8):
-        for p in range(4):
-            for j in range(0, aw.shape[2], 16):
-                w = aw[p]
-                a = np.stack([w[kq + _T, j + _G], w[kq + _T, j + _G + 8],
-                              w[kq + 4 + _T, j + _G],
-                              w[kq + 4 + _T, j + _G + 8]], axis=1)
-                for c in range(0, C, 8):
-                    b = np.stack([bw[kq + _T, c + _G],
-                                  bw[kq + 4 + _T, c + _G]], axis=1)
-                    d = _mma_m16n8k32(a, b)
-                    for h in range(2):
-                        out[p, j + _G + 8 * h, c + 2 * _T] += d[:, 2 * h]
-                        out[p, j + _G + 8 * h, c + 2 * _T + 1] += \
-                            d[:, 2 * h + 1]
+    """B2 as kernel B2 contracts it: the operand laid out by the wrapper
+    (``t_operand``), stages of 128 variants, each consumer warpgroup's
+    rows (byte column 4g + w of its 32-column sub-tile, two planes per m64
+    tile), A words from one byte of each of variants t, 4+t, 8+t, 12+t of a
+    16-variant group, and the epilogue's rows (plane, byte column)."""
+    (M, N4), C = packed.shape, dm.shape[1]
+    bn, mt, _, jb_cols = _tiling(C)
+    op = grm_kernel.t_operand(torch.from_numpy(dm)).numpy()
+    pk = np.zeros((-(-M // 128) * 128, -(-N4 // jb_cols) * jb_cols),
+                  np.uint8)
+    pk[:M, :N4] = packed
+    out = np.zeros((4, pk.shape[1], C), np.int64)
+    for jb in range(0, pk.shape[1], jb_cols):
+        for c0 in range(0, C, bn):
+            acc = np.zeros((2, mt, 128, bn // 2), np.int64)
+            for mb in range(0, pk.shape[0], 128):
+                b = _stage_b(op, c0, bn, mb)
+                for wgi in range(2):
+                    sub, plane0 = wgi * mt // 2, (wgi * 2 * mt) % 4
+                    jj = jb + 32 * sub + 4 * _G + _W
+                    for ks in range(4):
+                        v = []
+                        for h in range(2):
+                            var = mb + 32 * ks + 16 * h + 4 * np.arange(4) \
+                                + _T[:, None]
+                            v.append(_words(pk[var, jj[:, None]].T))
+                        for ti in range(mt):
+                            pl = plane0 + 2 * ti
+                            a = np.stack([(v[0] >> 2 * pl) & LOW2,
+                                          (v[0] >> 2 * pl + 2) & LOW2,
+                                          (v[1] >> 2 * pl) & LOW2,
+                                          (v[1] >> 2 * pl + 2) & LOW2],
+                                         axis=1)
+                            acc[wgi, ti] += wgmma_m64nNk32(a, b[ks])
+            for wgi in range(2):
+                sub, plane0 = wgi * mt // 2, (wgi * 2 * mt) % 4
+                jj = jb + 32 * sub + 4 * _G + _W
+                for ti in range(mt):
+                    for rh in range(2):
+                        for q in range(bn // 8):
+                            for e in range(2):
+                                out[plane0 + 2 * ti + rh, jj,
+                                    c0 + 8 * q + 2 * _T + e] = \
+                                    acc[wgi, ti, :, 4 * q + 2 * rh + e]
     return out[:, :N4]
 
 
@@ -212,24 +297,27 @@ def test_mma_fragment_map_is_a_matrix_product():
     rng = np.random.default_rng(6)
     A = rng.integers(-128, 128, size=(16, 32), dtype=np.int8)
     B = rng.integers(-128, 128, size=(32, 8), dtype=np.int8)
-    k4 = 4 * _T[:, None] + np.arange(4)
+    k4 = 4 * _T4[:, None] + np.arange(4)
     word = lambda v: _words(np.moveaxis(v, -1, 0))          # noqa: E731
-    a = np.stack([word(A[_G[:, None], k4]), word(A[_G[:, None] + 8, k4]),
-                  word(A[_G[:, None], k4 + 16]),
-                  word(A[_G[:, None] + 8, k4 + 16])], axis=1)
-    b = np.stack([word(B[k4, _G[:, None]]), word(B[k4 + 16, _G[:, None]])],
+    a = np.stack([word(A[_G8[:, None], k4]), word(A[_G8[:, None] + 8, k4]),
+                  word(A[_G8[:, None], k4 + 16]),
+                  word(A[_G8[:, None] + 8, k4 + 16])], axis=1)
+    b = np.stack([word(B[k4, _G8[:, None]]), word(B[k4 + 16, _G8[:, None]])],
                  axis=1)
     D = A.astype(np.int32) @ B.astype(np.int32)
     d = _mma_m16n8k32(a, b)
-    np.testing.assert_array_equal(d[:, 0], D[_G, 2 * _T])
-    np.testing.assert_array_equal(d[:, 3], D[_G + 8, 2 * _T + 1])
+    np.testing.assert_array_equal(d[:, 0], D[_G8, 2 * _T4])
+    np.testing.assert_array_equal(d[:, 3], D[_G8 + 8, 2 * _T4 + 1])
 
 
-@pytest.mark.parametrize("shape", [(37, 83, 128), (17, 130, 256)])
+@pytest.mark.parametrize("shape", [(37, 83, 128), (17, 130, 256),
+                                   (300, 90, 16), (40, 97, 32),
+                                   (150, 300, 64), (20, 50, 384)])
 def test_fragment_contraction_matches_plain(shape):
-    """The kernels' operand words and k order, contracted fragment by
-    fragment in int32, equal the plain versions exactly (ragged M and N4,
-    code 3 included)."""
+    """The kernels' operand layouts, k order, tiling and fragment maps,
+    contracted fragment by fragment in int32, equal the plain versions
+    exactly at every column tile (ragged M and N4, several blocks, stages
+    and column tiles, code 3 included)."""
     packed, d4, dm = _operands(*shape, seed=7)
     np.testing.assert_array_equal(
         _fwd_by_fragments(packed, d4),
@@ -239,6 +327,44 @@ def test_fragment_contraction_matches_plain(shape):
         _t_by_fragments(packed, dm),
         grm_kernel.plane_dot_t_plain(torch.from_numpy(packed),
                                      torch.from_numpy(dm)).numpy())
+
+
+def _rows_operands(M: int, N: int, C: int, seed: int):
+    """The store at the GRM store's width, slice rows int8 [N, RS] with RS
+    off every tile (as a product's live columns are) and the [4, N4, C]
+    slices they stand for, zero-padded; as numpy arrays."""
+    packed, d4, _ = _operands(M, N, C, seed, n4=store_width(N))
+    rs = max(1, C - 3)
+    d4[:, :, rs:] = 0
+    return packed, d4.reshape(-1, C)[:N, :rs].copy(), d4
+
+
+@pytest.mark.parametrize("shape", [(37, 83, 16), (40, 97, 64),
+                                   (17, 130, 256), (20, 50, 384)])
+def test_rows_operand_is_the_kernels_order(shape):
+    """B1's operand written from the slices' sample rows
+    (``fwd_rows_operand``) is the header's k order: byte ``128 G + 32 s +
+    16 h + 4 t + p`` of row c is sample ``p N4 + 32 G + 8 t + 2 s + h`` of
+    the zero-padded slices (zero past N4 and at padded columns), and
+    contracted by fragments it equals the plain version, as does
+    ``plane_dot_fwd_rows``."""
+    M, N, C = shape
+    packed, d_rows, d4 = _rows_operands(M, N, C, seed=8)
+    N4 = packed.shape[1]
+    op = grm_kernel.fwd_rows_operand(torch.from_numpy(d_rows), N4, C,
+                                     "cpu").numpy()
+    n4p = -(-N4 // 32) * 32
+    d4p = np.zeros((4, n4p, C), np.int8)
+    d4p[:, :N4] = d4
+    #            [p, G, t, s, h, c] -> [c, G, s, h, t, p]
+    want = d4p.reshape(4, n4p // 32, 4, 4, 2, C).transpose(5, 1, 3, 4, 2, 0)
+    np.testing.assert_array_equal(op, want.reshape(C, 4 * n4p))
+    plain = grm_kernel.plane_dot_fwd_plain(torch.from_numpy(packed),
+                                           torch.from_numpy(d4)).numpy()
+    np.testing.assert_array_equal(_fwd_by_fragments(packed, d4, op), plain)
+    np.testing.assert_array_equal(grm_kernel.plane_dot_fwd_rows(
+        torch.from_numpy(packed), torch.from_numpy(d_rows), C).numpy(),
+        plain)
 
 
 def _need_card():
@@ -251,11 +377,17 @@ def _need_card():
                                    (4100, 65537, 128), (1, 1031, 128),
                                    (15, 997, 256), (129, 4001, 128),
                                    (129, 1031, 256), (15, 2000, 256),
-                                   (129, 4016, 128)])
+                                   (129, 4016, 128), (1, 1040, 16),
+                                   (15, 1069, 32), (129, 1040, 64),
+                                   (129, 1069, 16), (300, 4001, 384),
+                                   (37, 2000, 512), (4100, 65537, 16)])
 def test_kernels_match_plain_on_card(shape):
     """The hand-written CUDA kernels against their plain versions, on the
-    card, at the GRM store's width N4 = store_width(N) (ragged shapes: M
-    and N off every tile size, N4 off the 8- and 32-byte-column steps)."""
+    card, at the GRM store's width N4 = store_width(N), at every column
+    tile (C = 16 .. 256, and 384 and 512 over several tiles) and ragged
+    shapes: M of 1, 15, 129 and others off every block size, ceil(N / 4)
+    off a multiple of 16 by 2, 4 and 12 (the store pads it), N4 off the
+    32-byte-column stage and the 64-column block."""
     _need_card()
     packed, d4, dm = (torch.from_numpy(a).cuda()
                       for a in _operands(*shape, seed=shape[0],
@@ -272,6 +404,35 @@ def test_kernels_match_plain_on_card(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1040, 16), (15, 1069, 32),
+                                   (129, 1031, 64), (300, 4001, 128),
+                                   (37, 2000, 256), (129, 1111, 768),
+                                   (4100, 65537, 16)])
+@pytest.mark.parametrize("where", ["card", "host"])
+def test_rows_kernel_matches_plain_on_card(shape, where):
+    """Kernel B1 from the slices' sample rows (``plane_dot_fwd_rows``, the
+    GRM product's path; the rows on the card or on the host) launches once
+    and equals the plain version of the zero-padded slices at every
+    column tile, several tiles and ragged shapes; the layout kernel's
+    operand equals the CPU's scatter byte for byte."""
+    _need_card()
+    packed, d_rows, d4 = _rows_operands(*shape, seed=shape[1])
+    packed, d4 = torch.from_numpy(packed).cuda(), torch.from_numpy(d4).cuda()
+    d_rows = torch.from_numpy(d_rows)
+    N4, C = packed.shape[1], shape[2]
+    assert torch.equal(
+        grm_kernel.fwd_rows_operand(d_rows, N4, C, "cuda").cpu(),
+        grm_kernel.fwd_rows_operand(d_rows, N4, C, "cpu"))
+    if where == "card":
+        d_rows = d_rows.cuda()
+    before = grm_kernel.LAUNCHES["plane_dot_fwd"]
+    got = grm_kernel.plane_dot_fwd_rows(packed, d_rows, shape[2])
+    torch.cuda.synchronize()
+    assert grm_kernel.LAUNCHES["plane_dot_fwd"] == before + 1
+    assert torch.equal(got, grm_kernel.plane_dot_fwd_plain(packed, d4))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["fwd", "t"])
 def test_kernels_exact_at_int32_bound(kernel):
     """Every code 2 and every slice 64 at the largest axis the wrappers
@@ -281,11 +442,11 @@ def test_kernels_exact_at_int32_bound(kernel):
     _need_card()
     C = 128
     if kernel == "fwd":
-        M, N4 = 3, (1 << 22) - 4
+        M, N4 = 3, (1 << 22) - 16
         rhs = torch.full((4, N4, C), 64, dtype=torch.int8, device="cuda")
         want = 2 * 64 * 4 * N4
     else:
-        M, N4 = (1 << 24) - 1, 4
+        M, N4 = (1 << 24) - 1, 16
         rhs = torch.full((M, C), 64, dtype=torch.int8, device="cuda")
         want = 2 * 64 * M
     assert want < 2 ** 31
@@ -301,14 +462,15 @@ def test_kernels_exact_at_int32_bound(kernel):
 @pytest.mark.parametrize("kernel", ["fwd", "t"])
 @pytest.mark.parametrize("rows", ["ragged", "offset"])
 def test_kernels_reject_unaligned_rows(kernel, rows):
-    """A CUDA store whose rows do not start 4-byte aligned (N4 % 4 != 0,
+    """A CUDA store whose rows do not start 16-byte aligned (N4 % 16 != 0,
     or a base one byte in) is refused before any launch."""
     _need_card()
     packed, d4, dm = (torch.from_numpy(a).cuda()
                       for a in _operands(37, 1031, 128, seed=9))
-    if rows == "offset":       # N4 = 260, the store's width, one byte in
+    if rows == "offset":       # N4 = 272, the store's width, one byte in
         packed, d4, dm = (torch.from_numpy(a).cuda() for a in
-                          _operands(37, 1031, 128, seed=9, n4=260))
+                          _operands(37, 1031, 128, seed=9,
+                                    n4=store_width(1031)))
         flat = torch.zeros(packed.numel() + 1, dtype=torch.uint8,
                            device="cuda")
         flat[1:] = packed.reshape(-1)
@@ -317,6 +479,6 @@ def test_kernels_reject_unaligned_rows(kernel, rows):
     fn = grm_kernel.plane_dot_fwd if kernel == "fwd" else \
         grm_kernel.plane_dot_t
     before = dict(grm_kernel.LAUNCHES)
-    with pytest.raises(ValueError, match="4-byte"):
+    with pytest.raises(ValueError, match="16-byte"):
         fn(packed, d4 if kernel == "fwd" else dm)
     assert grm_kernel.LAUNCHES == before

@@ -103,28 +103,30 @@ def test_matvec_matches_jax(grms, rhs):
 
 
 def test_matvec_goes_through_the_kernel_wrappers(grms, monkeypatch):
-    """One B1 and one B2 call per product (their plain versions here)."""
+    """One B1 and one B2 call per product (their plain versions here); B1
+    through its wrapper from the slices' sample rows."""
     _, _, tg, _ = grms
     seen = []
-    for name in ("plane_dot_fwd", "plane_dot_t"):
+    for name in ("plane_dot_fwd_rows", "plane_dot_t"):
         fn = getattr(grm_kernel, name)
         monkeypatch.setattr(grm_kernel, name,
                             lambda *a, _f=fn, _n=name: seen.append(_n)
                             or _f(*a))
     tg.matvec(torch.ones(N_SAMPLES, 2, dtype=torch.float64))
-    assert seen == ["plane_dot_fwd", "plane_dot_t"]
+    assert seen == ["plane_dot_fwd_rows", "plane_dot_t"]
 
 
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 1031, 1040])
 def test_store_rows_are_word_aligned(n):
-    """Every width of the store is a multiple of 4 byte columns (kernels
-    B1 and B2 load four at a time), at most 3 past ceil(N/4); the padding
-    samples are code 0 and the store unpacks to the zeroed codes; the
-    streamed build lays it out the same."""
+    """Every width of the store is a multiple of 16 byte columns (kernels
+    B1 and B2 read it through a TMA tensor map, whose rows start 16-byte
+    aligned), at most 15 past ceil(N/4); the padding samples are code 0
+    and the store unpacks to the zeroed codes; the streamed build lays it
+    out the same."""
     rng = np.random.default_rng(n)
     codes = rng.integers(0, 4, size=(5, n), dtype=np.int8)
     width = store_width(n)
-    assert width % 4 == 0 and -(-n // 4) <= width < -(-n // 4) + 4
+    assert width % 16 == 0 and -(-n // 4) <= width < -(-n // 4) + 16
     g = build_packed2_grm(codes, device="cpu")
     assert tuple(g.packed.shape) == (5, width)
     full = unpack_codes_2bit(g.packed.numpy(), 4 * width)
@@ -137,7 +139,7 @@ def test_store_rows_are_word_aligned(n):
 
 def test_carried_store_is_packed_to_the_store_width(grms):
     """The JAX store (N4 = ceil(N/4) = 258 here) comes across at the
-    port's width (260), holding the same codes."""
+    port's width (272), holding the same codes."""
     _, jg, tg, _ = grms
     full = np.concatenate([np.concatenate([np.asarray(t) for t in lf], axis=1)
                            for lf in jg.packed], axis=0)
@@ -146,6 +148,53 @@ def test_carried_store_is_packed_to_the_store_width(grms):
     np.testing.assert_array_equal(
         unpack_codes_2bit(tg.packed.numpy(), N_SAMPLES),
         unpack_codes_2bit(full, N_SAMPLES))
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 1031, 1040])
+def test_jax_store_carried_at_the_store_width(n):
+    """The JAX package's store of n samples (N4 = ceil(n/4) byte columns)
+    comes across at the port's width, a multiple of 16 byte columns, with
+    the same codes, and the carried operator's product equals the JAX
+    operator's (1e-13 of each column's largest magnitude)."""
+    import jax.numpy as jnp
+    from saigegds_tpu.ops.packed_grm import build_packed2_grm as jbuild
+    rng = np.random.default_rng(n + 100)
+    codes = rng.integers(0, 4, size=(5, n), dtype=np.int8)
+    jg = jbuild(codes)
+    tg = _carry(jg)
+    full = np.concatenate([np.concatenate([np.asarray(t) for t in lf], axis=1)
+                           for lf in jg.packed], axis=0)
+    assert full.shape[1] == -(-n // 4)
+    assert tuple(tg.packed.shape) == (5, store_width(n))
+    assert store_width(n) % 16 == 0
+    np.testing.assert_array_equal(unpack_codes_2bit(tg.packed.numpy(), n),
+                                  unpack_codes_2bit(full, n))
+    b = rng.normal(size=(n, 2))
+    _close(tg.matvec(torch.from_numpy(b)).numpy(),
+           np.asarray(jg.matvec(jnp.asarray(b))), RTOL)
+
+
+def test_kernel_cols_are_the_kernels_tiles():
+    """A product of R right-hand sides runs B1 and B2 at the narrowest
+    column tile that holds its 8 R slice columns (one right-hand side at
+    16, not 128), and beyond 256 at a multiple of 128 that the kernels'
+    tiles of 256 or 128 divide."""
+    from saigegds_tpu_torch.ops.packed_grm import N_SLICES, kernel_cols
+    tiles = grm_kernel.COLUMN_TILES
+    assert [kernel_cols(r) for r in (1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32,
+                                     33, 48, 96, 124)] == \
+        [16, 16, 32, 32, 64, 64, 128, 128, 256, 256, 256, 384, 384, 768,
+         1024]
+    for r in range(1, 130):
+        C, need = kernel_cols(r), r * N_SLICES
+        tile = grm_kernel.column_tile(C)
+        assert C >= need and C % tile == 0 and tile in tiles
+        if C <= 256:
+            assert C in tiles and tile == C
+            assert all(w < need for w in tiles if w < C)
+        else:
+            assert C % 128 == 0 and C - need < 128
+            assert tile == (256 if C % 256 == 0 else 128)
 
 
 @pytest.mark.parametrize("block", [17, M_VARIANTS])
