@@ -13,13 +13,17 @@ and prints no result line):
 2. build every kernel of the fit, scan and aggregate paths from
    ``saigegds_tpu_torch/csrc`` (one ``nvcc`` per source, all at once) and
    print each kernel's registers and spills; it fails when an entry
-   spills, or when ``libplane_dot.so`` (B1, B2) holds no warpgroup MMA
-   (``GMMA`` in ``cuobjdump -sass``), no TMA or bulk copy (``UTMALDG`` or
-   ``UBLKCP``), or any ``mma.sync`` (``IMMA``);
+   spills, or when ``libplane_dot.so`` (B1, B2),
+   ``libindicator_dot_2bit.so`` (B3) or ``libindicator_dot.so`` (B4)
+   holds no warpgroup MMA (``GMMA`` in ``cuobjdump -sass``), no TMA or
+   bulk copy (``UTMALDG`` or ``UBLKCP``), or any ``mma.sync`` (``IMMA``);
 3. every kernel against its plain PyTorch version on the card, bit-equal,
    at a ragged shape and at its main-path shapes: B3
-   (``indicator_dot_2bit``) at the scan's block (B = 1024 variants,
-   N = 430,000 samples, C = 128); B1 (``plane_dot_fwd``) and B2
+   (``indicator_dot_2bit``) at 37 variants x 1,031 samples and at the
+   scan's block (B = 1024 variants, N = 430,000 samples) at C = 96 (the
+   main paths' models: 88 live columns) and C = 384 (four tiles), over
+   the slices' layout made once beforehand as the scan makes it once per
+   model (its time printed apart); B1 (``plane_dot_fwd``) and B2
    (``plane_dot_t``) at three ragged shapes (37, 129 and 129 variants x
    1,031 and 1,069 samples, C = 128, 256 and 16) and over one store of the
    fit's shape (M = 16,384 GRM variants, N = 430,000) at every column
@@ -31,10 +35,13 @@ and prints no result line):
    it), each beside ``torch._int_mm`` on
    the store decoded beforehand (B1: against the slices; B2: the decoded
    store's transpose against its operand), a contraction-only yardstick;
-   B4 (``indicator_dot``, int8 codes) at the aggregate
-   tests' single-variant batch (B = 256, N = 430,000, C = 128), B3 and B4
-   each beside ``torch._int_mm`` (cuBLAS int8 GEMM) on the indicators
-   decoded beforehand, a contraction-only yardstick the port never calls;
+   B4 (``indicator_dot``, int8 codes) at 37 x 1,031 and at the aggregate
+   tests' single-variant batch (B = 256, N = 430,000) at C = 96 and 384,
+   B3 and B4 each beside ``torch._int_mm`` (cuBLAS int8 GEMM) on the
+   indicators decoded beforehand at the same C, a contraction-only
+   yardstick the port never calls; from phase 4 on every B3 and B4 launch
+   is counted by phase and C, and the run fails if the main paths launched
+   either at a C that phase 3 did not hold at full width;
    B5
    (``decode_codes``: a stream scan that writes a table of where each
    16 KiB output tile's entries start, then one block per tile that
@@ -43,11 +50,14 @@ and prints no result line):
    rows x N = 430,000 (1% of them ALT-major, an entry per sample; the
    count of dense rows is printed), beside ``torch.zeros`` of its output
    (the zero-fill yardstick), and each of its two stages against its own
-   plain version, with its own time.  Every time
-   is the median of several runs timed with CUDA events, printed beside the
-   plain version's and the bound (the larger of the bytes the function must
-   move at 3.35 TB/s and its int8 operations at 1,979 TOP/s), with the
-   achieved int8 operations per second and the share of the bound;
+   plain version, with its own time.  Every kernel's time (and its
+   yardstick's) is the median of several runs of CUDA events around
+   enough calls back to back to span about 2 ms (one call between two
+   events, which also times the host's work per call, is printed
+   beside), printed beside the plain version's and the bound (the larger
+   of the bytes the function must move at 3.35 TB/s and its int8
+   operations at 1,979 TOP/s), with the achieved int8 operations per
+   second and the share of the bound;
 4. the null-GLMM fit at full width: a synthetic GDS of 16,384 GRM variants
    x 430,000 samples (allele frequencies 0.05-0.5, 0.5% missing) and a
    polygenic binary phenotype (true tau_G ~ 0.6, 3 covariates), then
@@ -63,7 +73,11 @@ and prints no result line):
    missing-pair corrections alone in five forms (``index_add_`` with and
    without ``torch.use_deterministic_algorithms``, ``segment_reduce``, a
    CSR product and the port's ``embedding_bag`` sums), each timed and run
-   twice: the port's must agree with itself bit for bit;
+   twice: the port's must agree with itself bit for bit; then one scan
+   block's phase 1 from the fitted model traced by ``torch.profiler``
+   over the model packed once, as the scan packs it (device ms by kernel;
+   it fails if the block made a layout of the slices or did not launch
+   B3 once);
 5. the fit held against the CPU: one GRM product over the first 2,048 GRM
    variants at full N (31 columns) on the card and on the CPU, within
    1e-12 relative; a small fit (2,000 samples x 1,000 variants) on both,
@@ -241,7 +255,11 @@ N_ASSOC = 16            # variants of the first block tied to the phenotype
 N_EXTRA = 16            # scan GDS samples outside the model
 SEED = 20261016
 RTOL = 1e-10            # card vs CPU table agreement
-KERNEL_SHAPES = [(37, 1031), (BLOCK, N_SAMPLES)]
+SCAN_C = 96             # C of B3 and B4 on the main paths: 88 live columns
+#                         (2K + 3 vectors x 8 slices, K = 4) padded to a tile
+SCAN_WIDE = 384         # a multi-tile C (four tiles of 96)
+KERNEL_SHAPES = [(37, 1031, SCAN_C), (BLOCK, N_SAMPLES, SCAN_C),
+                 (BLOCK, N_SAMPLES, SCAN_WIDE)]     # B3: B, N, C
 M_FIT = 16_384          # GRM variants of the fit (bench.py M_FITMIX)
 FIT_SMALL = (2000, 1000)  # samples x variants of the card-vs-CPU fit
 GRM_SHAPES = [(37, 1031, 128), (129, 1031, 256), (129, 1069, 16)]
@@ -269,7 +287,9 @@ CAT_EDGES = (10.5, 20.5)  # MAC categories of the categorized fit
 RARE_SHARE = 0.5        # rare GRM markers of the categorized fit's data
 F64_OPS_S = 34e12       # H100 SXM FP64 peak outside the tensor cores
 SOURCES = ["indicator_dot_2bit", "plane_dot", "indicator_dot", "decode_codes"]
-B4_SHAPES = [(37, 1031), (256, N_SAMPLES)]     # B, N at C = 128
+B4_SHAPES = [(37, 1031, SCAN_C), (256, N_SAMPLES, SCAN_C),
+             (256, N_SAMPLES, SCAN_WIDE)]       # B, N, C
+SCAN_MAIN = 1           # the JSON line's shape of B3 and B4: C = SCAN_C
 B5_ROWS = (256, 2048)   # rare-variant streams at N = N_SAMPLES
 N_AGG = 16_384          # variants of the aggregate phase's GDS
 N_UNITS = 512           # gene units of 8-64 contiguous variants
@@ -321,19 +341,70 @@ def mark(phase: str):
         f"{host_rss_gib():.2f} GiB)")
 
 
-def median_ms(fn, runs: int) -> float:
-    """Median wall time of ``fn`` on the card, in ms, by CUDA events."""
+class LaunchWidths:
+    """From its creation on, every B3 and B4 launch counted by phase and by
+    C (the rows of the slices' layout that the wrapper hands its kernel);
+    launch counts are untouched."""
+
+    def __init__(self):
+        from saigegds_tpu_torch.ops import score_kernel
+        self.phase = ""
+        self.counts = {}            # "phase: kernel C=c" -> launches
+        inner = score_kernel._launch
+
+        def launch(name, x, op, k):
+            key = f"{self.phase}: {name} C={op.shape[0]}"
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return inner(name, x, op, k)
+        score_kernel._launch = launch
+
+    def mark(self, phase: str):
+        """`mark`, and the launches from here on count for ``phase``."""
+        mark(phase)
+        self.phase = phase.split(".")[0]
+
+    def check(self, checked: set):
+        """Every C at which the main paths launched B3 or B4 is one that
+        phase 3 held against the plain versions, at full width."""
+        launched = {key.split(": ")[1] for key in self.counts}
+        log(f"B3 and B4 launches by phase and C (phase 4 on, this "
+            f"process): {json.dumps(self.counts)}")
+        missing = launched - checked
+        if missing:
+            raise AssertionError(f"the main paths launched "
+                                 f"{sorted(missing)}, which phase 3 does "
+                                 "not hold against the plain versions")
+
+
+def median_ms(fn, runs: int, per: int = 1) -> float:
+    """Median wall time of one call of ``fn`` on the card, in ms, by CUDA
+    events around ``per`` calls back to back."""
     import torch
     times = []
     for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(per):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per)
     return float(np.median(times))
+
+
+BATCH_MS = 2.0          # a kernel is timed over calls that span about this
+
+
+def per_call_ms(fn, runs: int) -> tuple:
+    """(ms a call, calls, ms of one call): a kernel's time, the median
+    over ``runs`` of CUDA events
+    around enough calls back to back to span about BATCH_MS (at least one),
+    beside the median of one call between two events, which also times the
+    host's work per call."""
+    one = median_ms(fn, runs)
+    per = max(1, min(32, int(BATCH_MS / max(one, 1e-3))))
+    return (median_ms(fn, runs, per) if per > 1 else one), per, one
 
 
 def kernel_modules():
@@ -387,14 +458,16 @@ def compare_and_time(label: str, kern, plain, runs: int, least: dict,
                              f"(max abs err {err}) or with its input")
     del got, want
     p1 = median_ms(plain, plain_runs)
-    k1 = median_ms(kern, runs)
-    k2 = median_ms(kern, runs)
+    k1, per, one1 = per_call_ms(kern, runs)
+    k2, _, one2 = per_call_ms(kern, runs)
     p2 = median_ms(plain, plain_runs)
     ms, plain_ms = float(np.median([k1, k2])), float(np.median([p1, p2]))
+    one = float(np.median([one1, one2]))
     rate = f"{least['ops'] / ms * 1e3:.3e} int8 op/s" if least["ops"] else \
         f"{least['bytes'] / ms / 1e6:.1f} GB/s of needed bytes"
-    log(f"{label}: bit-equal to the plain version; kernel {ms:.3f} ms "
-        f"(runs {k1:.3f}, {k2:.3f}), plain {plain_ms:.3f} ms (runs "
+    log(f"{label}: bit-equal to the plain version; kernel {ms:.3f} ms a "
+        f"call over {per} back to back (runs {k1:.3f}, {k2:.3f}; one call "
+        f"between two events {one:.3f}), plain {plain_ms:.3f} ms (runs "
         f"{p1:.3f}, {p2:.3f}), bound {least['bound_ms']:.4f} ms "
         f"({least['bound_by']}); {rate}, {least['bound_ms'] / ms:.1%} of "
         f"the bound")
@@ -420,7 +493,7 @@ def int_mm_best(label: str, what: str, lhs, rhs, same, runs: int):
             continue
         ok = same(got)
         del got
-        times[layout] = median_ms(lambda: torch._int_mm(lhs, r), runs)
+        times[layout] = per_call_ms(lambda: torch._int_mm(lhs, r), runs)[0]
         log(f"{label}: torch._int_mm (cuBLAS int8 GEMM, contraction only, "
             f"{what}), right operand {layout}: {times[layout]:.3f} ms, "
             f"{'equal to' if ok else 'DIFFERENT from'} the kernel's result")
@@ -477,30 +550,88 @@ def grm_int_mm_ms(label: str, decoded, d4, dm, out_fwd, out_t,
     return out
 
 
-def check_kernel(B: int, N: int, device, gen) -> dict:
-    """B3 on the card vs its plain version on the same tensors."""
+def check_kernel(B: int, N: int, C: int, device, gen) -> dict:
+    """B3 on the card vs its plain version on the same tensors, over the
+    slices' layout made once beforehand (``operand_2bit``: the scan makes
+    it once per model), whose own time is printed."""
     import torch
     from saigegds_tpu_torch.ops import score_kernel
 
     n4 = -(-N // 4)
     packed = torch.randint(0, 256, (B, n4), dtype=torch.uint8, device=device,
                            generator=gen)
-    vs4 = torch.randint(-64, 65, (4, n4, 128), dtype=torch.int8,
+    vs4 = torch.randint(-64, 65, (4, n4, C), dtype=torch.int8,
                         device=device, generator=gen)
-    vs4.view(4 * n4, 128)[N:] = 0        # padded samples meet zero rows
-    label = f"B3 B={B} N={N} C=128"
+    vs4.view(4 * n4, C)[N:] = 0          # padded samples meet zero rows
+    vs4k = score_kernel.operand_2bit(vs4)
+    label = f"B3 B={B} N={N} C={C}"
     res = compare_and_time(
-        label, lambda: score_kernel.indicator_dot_2bit(packed, vs4),
+        label, lambda: score_kernel.indicator_dot_2bit(packed, vs4, vs4k),
         lambda: score_kernel.indicator_dot_2bit_plain(packed, vs4), 10,
-        bound(B * n4 + vs4.numel() + 4 * B * 3 * 128,
-              2 * 3 * B * 4 * n4 * 128))
+        bound(B * n4 + vs4.numel() + 4 * B * 3 * C,
+              2 * 3 * B * 4 * n4 * C))
+    layout_ms = median_ms(lambda: score_kernel.operand_2bit(vs4), 3)
+    log(f"  of which not timed: the model's layout of the slices "
+        f"(operand_2bit, once per model) {layout_ms:.3f} ms")
     pi = packed.to(torch.int32)          # natural order: sample p*N4 + j
     codes = torch.cat([(pi >> (2 * p)) & 3 for p in range(4)], dim=1)
     del pi
-    res["library_ms"] = int_mm_ms(label, codes, vs4.view(4 * n4, 128),
+    res["library_ms"] = int_mm_ms(label, codes, vs4.view(4 * n4, C),
                                   score_kernel.indicator_dot_2bit(packed,
-                                                                  vs4))
+                                                                  vs4, vs4k))
+    res["C"], res["N"] = C, N
     return res
+
+
+def trace_scan_block(model, device, gen):
+    """The scan's phase 1 of one block (``score_stats_binary_packed``: B3
+    and the per-variant algebra), traced by ``torch.profiler`` over a model
+    packed once beforehand as ``assoc_spa`` packs it: the device kernels
+    by name, and no layout of the slices made for the block."""
+    import torch
+    from saigegds_tpu_torch.ops import score_kernel
+    from saigegds_tpu_torch.ops.score import ScanParams
+    from saigegds_tpu_torch.ops.score_packed import pack_scan_model, \
+        score_stats_binary_packed
+
+    sm = model.scan_model(device=device)
+    t0 = time.perf_counter()
+    pm = pack_scan_model(sm)
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    n4 = pm.vs4.shape[1]
+    payload = torch.randint(0, 256, (BLOCK, n4), dtype=torch.uint8,
+                            device=device, generator=gen)
+    params = ScanParams(maf=-1.0, mac=10.0, missing=0.1, spa_pval=0.05)
+    score_stats_binary_packed(pm, params, payload)        # warm-up
+    made = []
+    saved = {k: getattr(score_kernel, k) for k in ("operand_2bit", "operand")}
+    for k, fn in saved.items():
+        setattr(score_kernel, k,
+                lambda *a, _k=k, _fn=fn: made.append(_k) or _fn(*a))
+    before = score_kernel.LAUNCHES["indicator_dot_2bit"]
+    try:
+        by_name = device_ms_by_kernel(
+            lambda: score_stats_binary_packed(pm, params, payload))
+    finally:
+        for k, fn in saved.items():
+            setattr(score_kernel, k, fn)
+    if made or score_kernel.LAUNCHES["indicator_dot_2bit"] != before + 1:
+        raise AssertionError(f"one block's phase 1 made layouts {made} or "
+                             "did not launch B3 once")
+    b3 = [v for k, v in by_name.items() if "indicator_kernel" in k]
+    log(f"one scan block's phase 1 ({BLOCK} variants, C = "
+        f"{pm.vs4.shape[2]}) traced by torch.profiler: no layout of the "
+        f"slices made (the model's, packed once in {t_pack * 1e3:.1f} ms "
+        f"with both kernels' layouts), one B3 launch ("
+        + (f"its kernel {b3[0]:.4f} ms" if b3 else
+           "its kernel not recorded by the profiler")
+        + f"), {len(by_name)} kernels in all, "
+        f"{sum(by_name.values()):.4f} ms; device ms by kernel: "
+        + (", ".join(f"{kernel_name(k)[:60]} {v:.4f}"
+                     for k, v in sorted(by_name.items(),
+                                        key=lambda kv: -kv[1]))
+           or "not measured (the profiler recorded no device events)"))
 
 
 def random_store(M: int, N: int, device, gen):
@@ -566,30 +697,33 @@ def check_grm(packed, N: int, C: int, gen, decoded=None) -> dict:
     return out
 
 
-def check_grm_build(name: str):
-    """Phase 2's checks of a built source: no entry spills, and B1's and
-    B2's library runs on the warpgroup MMA fed by TMA or bulk copies, with
-    no ``mma.sync`` left (``cuobjdump -sass``)."""
+WGMMA_SOURCES = ("plane_dot", "indicator_dot_2bit", "indicator_dot")
+
+
+def check_build(name: str):
+    """Phase 2's checks of a built source: no entry spills, and the
+    libraries of B1 and B2, B3, and B4 run on the warpgroup MMA fed by TMA
+    or bulk copies, with no ``mma.sync`` left (``cuobjdump -sass``)."""
     from saigegds_tpu_torch.ops import _cuda
     spills = [line.strip() for line in _cuda.BUILD_LOG.get(name, "")
               .splitlines() if "spill" in line
               and ("0 bytes spill stores, 0 bytes spill loads" not in line)]
     if spills:
         raise AssertionError(f"{name}: an entry spills: {spills}")
-    if name != "plane_dot":
+    if name not in WGMMA_SOURCES:
         return
     tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", os.path.join(
-        _cuda.BUILD_DIR, "libplane_dot.so")], capture_output=True,
+        _cuda.BUILD_DIR, f"lib{name}.so")], capture_output=True,
         text=True, timeout=300, check=True).stdout
     count = {op: sass.count(op) for op in ("GMMA", "UTMALDG", "UBLKCP",
                                             "IMMA")}
-    log(f"  SASS plane_dot: {json.dumps(count)}")
+    log(f"  SASS {name}: {json.dumps(count)}")
     if not count["GMMA"] or not (count["UTMALDG"] or count["UBLKCP"]) \
             or count["IMMA"]:
-        raise AssertionError("plane_dot: B1 and B2 must run warpgroup "
-                             "MMAs on tiles copied by TMA or bulk copies, "
-                             f"and no mma.sync (SASS {count})")
+        raise AssertionError(f"{name}: its kernels must run warpgroup MMAs "
+                             "on tiles copied by TMA or bulk copies, and no "
+                             f"mma.sync (SASS {count})")
 
 
 class KernelClock:
@@ -637,23 +771,29 @@ class KernelClock:
                 for name, ev in self.events.items()}
 
 
-def check_b4(B: int, N: int, device, gen) -> dict:
+def check_b4(B: int, N: int, C: int, device, gen) -> dict:
     """B4 on the card vs its plain version: int8 codes of all four values
-    against int8 slices in [-64, 64], C = 128."""
+    against int8 slices in [-64, 64], over the slices' layout made once
+    beforehand (``operand``, once per model on the main path)."""
     import torch
     from saigegds_tpu_torch.ops import score_kernel
 
     codes = torch.randint(0, 4, (B, N), dtype=torch.int8, device=device,
                           generator=gen)
-    vs = torch.randint(-64, 65, (N, 128), dtype=torch.int8, device=device,
+    vs = torch.randint(-64, 65, (N, C), dtype=torch.int8, device=device,
                        generator=gen)
-    label = f"B4 B={B} N={N} C=128"
+    vsk = score_kernel.operand(vs)
+    label = f"B4 B={B} N={N} C={C}"
     res = compare_and_time(
-        label, lambda: score_kernel.indicator_dot(codes, vs),
+        label, lambda: score_kernel.indicator_dot(codes, vs, vsk),
         lambda: score_kernel.indicator_dot_plain(codes, vs), 10,
-        bound(B * N + N * 128 + 4 * B * 3 * 128, 2 * 3 * B * N * 128))
+        bound(B * N + N * C + 4 * B * 3 * C, 2 * 3 * B * N * C))
+    layout_ms = median_ms(lambda: score_kernel.operand(vs), 3)
+    log(f"  of which not timed: the model's layout of the slices "
+        f"(operand, once per model) {layout_ms:.3f} ms")
     res["library_ms"] = int_mm_ms(label, codes, vs,
-                                  score_kernel.indicator_dot(codes, vs))
+                                  score_kernel.indicator_dot(codes, vs, vsk))
+    res["C"], res["N"] = C, N
     return res
 
 
@@ -678,8 +818,8 @@ def check_b5(codes: np.ndarray, device) -> dict:
         lambda: sc.decode_codes_plain(e, rp, B, N), 10,
         bound(B * N + 2 * len(entries) + 4 * (B + 1), 0),
         exact=torch.from_numpy(codes).to(device))
-    res["library_ms"] = median_ms(
-        lambda: torch.zeros(B, N, dtype=torch.int8, device=device), 10)
+    res["library_ms"] = per_call_ms(
+        lambda: torch.zeros(B, N, dtype=torch.int8, device=device), 10)[0]
     log(f"{label}: torch.zeros of the output (yardstick, the zero-fill "
         f"alone) {res['library_ms']:.3f} ms")
     tiles = -(-(B * N) // sc.TILE)
@@ -2590,12 +2730,13 @@ def main() -> int:
             if "entry function" in line or "registers" in line \
                     or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-        check_grm_build(name)
+        check_build(name)
 
     # 3. kernels vs plain versions
     mark('3. kernels vs plain versions')
     gen = torch.Generator(device=device).manual_seed(SEED)
-    checks = [check_kernel(B, N, device, gen) for B, N in KERNEL_SHAPES]
+    checks = [check_kernel(B, N, C, device, gen)
+              for B, N, C in KERNEL_SHAPES]
     grm_checks = [check_grm(random_store(M, N, device, gen), N, C, gen)
                   for M, N, C in GRM_SHAPES]
     store = random_store(M_FIT, N_SAMPLES, device, gen)
@@ -2604,17 +2745,18 @@ def main() -> int:
                    for C in GRM_WIDTHS]
     del store, decoded
     torch.cuda.empty_cache()
-    b4_checks = [check_b4(B, N, device, gen) for B, N in B4_SHAPES]
+    b4_checks = [check_b4(B, N, C, device, gen) for B, N, C in B4_SHAPES]
     rare = make_rare_codes(max(B5_ROWS), N_SAMPLES, SEED + 4)
     b5_checks = [check_b5(ragged_stream_codes(SEED), device)] + \
         [check_b5(rare[:rows], device) for rows in B5_ROWS]
     del rare
 
+    launch_widths = LaunchWidths()
     work = os.path.join(ROOT, "_smoke")
     os.makedirs(work, exist_ok=True)
     try:
         # 4. the fit at full width
-        mark('4. the fit at full width')
+        launch_widths.mark('4. the fit at full width')
         t0 = time.perf_counter()
         codes, data = make_fit_data(N_SAMPLES, M_FIT, device, SEED)
         gds_fit = os.path.join(work, "fit.gds")
@@ -2671,9 +2813,10 @@ def main() -> int:
                                  "not hold against the plain versions")
 
         profile_product(device, gen)
+        trace_scan_block(model, device, gen)
 
         # 5. the fit held against the CPU
-        mark('5. the fit held against the CPU')
+        launch_widths.mark('5. the fit held against the CPU')
         worst_mv = check_matvec(codes[:MV_ROWS], device)
         del codes
         n_s, m_s = FIT_SMALL
@@ -2693,7 +2836,8 @@ def main() -> int:
             f"{inst_cpu['wall_s']:.1f} s on the CPU")
 
         # 6. the quantitative fit at full width, on the fit phase's GDS
-        mark("6. the quantitative fit at full width, on the fit phase's GDS")
+        launch_widths.mark("6. the quantitative fit at full width, on the "
+                           "fit phase's GDS")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -2727,7 +2871,7 @@ def main() -> int:
         del m_gpu, m_cpu
 
         # 7. the scan from the fitted model
-        mark('7. the scan from the fitted model')
+        launch_widths.mark('7. the scan from the fitted model')
         t0 = time.perf_counter()
         codes, sample_id = with_extra_samples(
             make_data(data["y"], N_VARIANTS, device, SEED), data["sample.id"],
@@ -2788,7 +2932,7 @@ def main() -> int:
         del tab_cpu, tab_i8
 
         # 8. the scan from the quantitative model
-        mark('8. the scan from the quantitative model')
+        launch_widths.mark('8. the scan from the quantitative model')
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         tab, inst, wall = scan(gds, model_q, "cuda")
@@ -2825,63 +2969,72 @@ def main() -> int:
         del tab_cpu, tab_i8
 
         # 9. the aggregate tests from the fitted model
-        mark('9. the aggregate tests from the fitted model')
+        launch_widths.mark('9. the aggregate tests from the fitted model')
         agg = aggregate(model, data["y"], work)
 
         # 10. the burden test of the quantitative model
-        mark('10. the burden test of the quantitative model')
+        launch_widths.mark('10. the burden test of the quantitative model')
         quant_burden(model_q, agg["gds"], agg["units"])
 
         # 11. the scans of imputed dosages
-        mark('11. the scans of imputed dosages')
+        launch_widths.mark('11. the scans of imputed dosages')
         ds = ds_scan(data["y"], data["sample.id"], model, model_q, work,
                      device)
 
         # 12. the dense route against the packed route; assoc_spa_user
-        mark('12. the dense route against the packed route; assoc_spa_user')
+        launch_widths.mark('12. the dense route against the packed route; '
+                           'assoc_spa_user')
         dense_vs_packed(gds, tab7, model, ds)
 
         # 13. the gene tests over the DS file
-        mark('13. the gene tests over the DS file')
+        launch_widths.mark('13. the gene tests over the DS file')
         ds_gene_tests(ds["gds"], model, model_q)
 
         # 14. R files
-        mark('14. R files')
+        launch_widths.mark('14. R files')
         r_files(model, gds, work)
 
         # 15. fit options at the small fit's size
-        mark("15. fit options at the small fit's size")
+        launch_widths.mark("15. fit options at the small fit's size")
         fit_options(work, device, gds_s, data_s, small_binary)
 
         # 16. the PheWAS fit at full width; the small quantitative one
-        mark('16. the PheWAS fit at full width; the small quantitative one')
+        launch_widths.mark('16. the PheWAS fit at full width; the small '
+                           'quantitative one')
         phewas_models, _ = phewas_fit(gds_fit, data, fit4, gds_s, data_s,
                                       "cuda")
 
         # 17. the PheWAS scan: the lanes and the quantitative model
-        mark('17. the PheWAS scan: the lanes and the quantitative model')
+        launch_widths.mark('17. the PheWAS scan: the lanes and the '
+                           'quantitative model')
         phewas_scan(gds, phewas_models, model_q, scan7, tab8)
         del tab8
 
         # 18. GxG
-        mark('18. GxG')
+        launch_widths.mark('18. GxG')
         gxg_phase(gds_fit, gds, tab7, data, gds_s, data_s)
 
         # 19. the sample-sharded fit and the variant-sharded scan
-        mark('19. the sample-sharded fit and the variant-sharded scan')
+        launch_widths.mark('19. the sample-sharded fit and the '
+                           'variant-sharded scan')
         op4 = kept4.pop("grm")
         mesh_phase(gds_s, data_s, model, op4, gds, tab7, scan7, work)
 
         # 20. the fit across two processes on the one card
-        mark('20. the fit across two processes on the one card')
+        launch_widths.mark('20. the fit across two processes on the one card')
         dist_phase(work, data, model, fit4, op4, data_s, card)
         del op4
 
         # 21. the command line
-        mark('21. the command line')
+        launch_widths.mark('21. the command line')
         cli_phase(work, gds_s, data_s, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    launch_widths.check(
+        {f"indicator_dot_2bit C={c['C']}" for c in checks
+         if c["N"] == N_SAMPLES} |
+        {f"indicator_dot C={c['C']}" for c in b4_checks
+         if c["N"] == N_SAMPLES})
 
     def entry(name, source, line, count, checks, main):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by")
@@ -2904,10 +3057,12 @@ def main() -> int:
               fit_launches["plane_dot_t"], grm_t, grm_t[GRM_MAIN]),
         entry("indicator_dot_2bit", "indicator_dot_2bit",
               "saigegds_tpu/ops/pallas_score.py:171",
-              scan_launches["indicator_dot_2bit"], checks, checks[-1]),
+              scan_launches["indicator_dot_2bit"], checks,
+              checks[SCAN_MAIN]),
         entry("indicator_dot", "indicator_dot",
               "saigegds_tpu/ops/pallas_score.py:225",
-              agg_launches["indicator_dot"], b4_checks, b4_checks[-1]),
+              agg_launches["indicator_dot"], b4_checks,
+              b4_checks[SCAN_MAIN]),
         entry("decode_codes", "decode_codes",
               "saigegds_tpu/ops/pallas_sparse.py:160",
               agg_launches["decode_codes"], b5_checks, b5_checks[1]),

@@ -1,6 +1,7 @@
 // Scan phase 1 from int8 codes on Hopper: exact integer contraction of
 // every variant's genotype indicators with the sliced model vectors, on
-// the int8 tensor cores.
+// the int8 tensor cores through the warpgroup MMA (wgmma) with the slices
+// brought in by TMA.
 //
 // Replaces saigegds_tpu/ops/pallas_score.py::_kernel (the Pallas body of
 // indicator_dot).  For B variants as int8 codes [B, N] (0/1/2, 3 = missing)
@@ -15,25 +16,27 @@
 // Pallas kernel's 131,072-sample f32 segments are not needed.
 //
 // What bounds it.  At the aggregate's main-path shape (B = 256 test
-// vectors, N = 430,000 samples, C = 128) the function reads 110 MB of
-// codes and 55 MB of slices, 49 us at 3.35 TB/s, and does 4.2e10
-// multiply-adds (8.5e10 int8 operations, 43 us at the int8 tensor-core
-// peak): balanced, by a hair on the bytes.  The first version ran the
-// multiply-adds on the CUDA cores, four a dot-product instruction
-// (1.46 ms); this one runs them on mma.sync.m16n8k32.s32.s8.s8.s32 (no
-// .satfinite: exact).
+// vectors, N = 430,000 samples, C = 96: a model of three covariates, 88
+// live) the function reads 110 MB of codes and 41 MB of slices, 45 us at
+// 3.35 TB/s, and does 3.2e10 multiply-adds (6.3e10 int8 operations, 32 us
+// at the int8 tensor-core peak): bound by the bytes.  The first version ran
+// the multiply-adds on the CUDA cores (__dp4a, 1.46 ms at C = 128), the
+// second on mma.sync m16n8k32 (0.29 ms at C = 128).
 //
-// Design.  B3's, with k the sample: the A word of variant b at sample quad
-// q is its four code bytes 4q .. 4q+3 as they lie in memory, the B word of
-// column c is vs[4q .. 4q+3, c] (transpose4), so one mma covers 16 variants
-// x 32 samples x 8 columns.  The block tile, the in-register indicator
-// split and the launch are B3's (indicator_tile.cuh).  Per stage (32
-// sample quads) a thread loads the next stage's global bytes into
-// registers before the current stage's mmas.  Two blocks per SM.  Rows
-// start at b * N, which is 4-byte aligned for one sample count in four: a
-// thread loads the aligned words that cover its four codes and
-// funnel-shifts them (int8_mma.cuh fetch4 / bytes4).  Samples at or past N
-// meet zero slices.
+// Design: the tile of indicator_tile.cuh (a producer warpgroup keeping TMA
+// loads of the slices' tiles in flight, two consumer warpgroups of 64
+// variants x BN columns x three indicators issuing wgmma m64nBNk32 with A
+// from registers), with this policy for the codes.  k runs over (stage
+// group G of 128 samples, k-step s, half h, quad thread t, byte i): a
+// thread reads 32 consecutive code bytes of each of its rows, samples
+// 32 t .. 32 t + 31 of the stage, as words j = 0 .. 7, and word j is the A
+// word of k-step j / 2, half j % 2, as it lies in memory.  Each code word
+// splits into its three indicator words in four operations.  The slices
+// are laid out in that order once per model (ops/score_kernel.py
+// operand): byte 128 G + 32 s + 16 h + 4 t + i of column c is
+// vs[128 G + 32 t + 8 s + 4 h + i, c], zero at samples at or past N.  Rows
+// start at b * N, aligned for one sample count in four: the payload keeps
+// the layout the host packs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -42,99 +45,48 @@
 
 namespace {
 
-using namespace indicator_tile;
-using namespace int8_mma;
+using indicator_tile::AFrag;
+using indicator_tile::LOW2;
 
-static_assert(TB * JT % THREADS == 0,
-              "every thread stages the same count of A words");
+// int8 code rows: a thread's 32 bytes of a row per stage (128 samples).
+struct Bytes {
+  static constexpr int SPAN = 32;
 
-__global__ void __launch_bounds__(THREADS, 2)
-indicator_dot_kernel(const int8_t* __restrict__ codes,
-                     const int8_t* __restrict__ vs, int* __restrict__ out,
-                     int B, long long N, int C, long long quads_per_split) {
-  // A, row r: code words of variant b0 + r (byte k = sample 4q + k)
-  __shared__ __align__(16) uint32_t as[TB][AS];            // 4.5 KB
-  // B, quad q: word c holds vs[4q .. 4q+3, c0 + c]
-  __shared__ __align__(16) uint32_t bs[JT][BS];            // 17 KB
-  constexpr int A_IT = TB * JT / THREADS;       // code words a thread
-  constexpr int B_IT = JT * CQ / THREADS;       // (quad, column quad)s
-
-  const Lane lane;
-  const int b0 = blockIdx.x * TB;
-  const int c0 = blockIdx.y * TC;
-  const long long NQ = (N + 3) / 4;
-  const long long jbeg = (long long)blockIdx.z * quads_per_split;
-  const long long jend = min(NQ, jbeg + quads_per_split);
-  const long long send = min(N, 4 * jend);      // the split's last sample
-
-  // One stage's global reads, held in registers while the previous stage
-  // computes.  Slices past the split's last sample read as 0; codes there
-  // may hold any value and meet those zero slices, and rows past B read
-  // as 0 and are never written out.
-  uint2 ra[A_IT];
-  uint32_t rb[B_IT][4];
-  auto fetch = [&](long long j0) {
-#pragma unroll
-    for (int it = 0; it < A_IT; ++it) {
-      const int e = threadIdx.x + it * THREADS;
-      const int b = b0 + e / JT;
-      const long long s0 = 4 * (j0 + e % JT);
-      ra[it] = fetch4(reinterpret_cast<const uint8_t*>(codes) +
-                          (long long)b * N + s0,
-                      b < B ? (int)max(0LL, min(4LL, send - s0)) : 0);
-    }
-#pragma unroll
-    for (int it = 0; it < B_IT; ++it) {
-      const int e = threadIdx.x + it * THREADS;
-      const long long s0 = 4 * (j0 + e / CQ);
-      const int8_t* src = vs + s0 * C + c0 + 4 * (e % CQ);
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        rb[it][k] = s0 + k < send ? *reinterpret_cast<const uint32_t*>(
-                                        src + (long long)k * C)
-                                  : 0u;
-    }
-  };
-  // ... then masked to 2-bit codes (A) and transposed (B) in shared memory
-  auto stash = [&]() {
-#pragma unroll
-    for (int it = 0; it < A_IT; ++it) {
-      const int e = threadIdx.x + it * THREADS;
-      // the row's start modulo 4 (sample quads start 4-byte apart)
-      const uint32_t low = (uint32_t)reinterpret_cast<uintptr_t>(codes) +
-                           (uint32_t)(b0 + e / JT) * (uint32_t)N;
-      as[e / JT][e % JT] = bytes4(ra[it], low) & 0x03030303u;
-    }
-#pragma unroll
-    for (int it = 0; it < B_IT; ++it) {
-      const int e = threadIdx.x + it * THREADS;
-      *reinterpret_cast<uint4*>(&bs[e / CQ][4 * (e % CQ)]) =
-          transpose4(rb[it][0], rb[it][1], rb[it][2], rb[it][3]);
-    }
-  };
-
-  int acc[3][NT][4] = {};             // [indicator][n8 tile][fragment]
-  if (jbeg < jend) fetch(jbeg);
-  for (long long j0 = jbeg; j0 < jend; j0 += JT) {
-    stash();
-    __syncthreads();
-    if (j0 + JT < jend) fetch(j0 + JT);       // in flight during the mmas
-    contract_stage(as, bs, acc, lane);
-    __syncthreads();
+  // The slices' width in k for rows of n samples: n rounded up to a
+  // stage's 128.
+  static constexpr long long width(long long n) {
+    return (n + 127) / 128 * 128;
   }
-  add_to_out(out, acc, B, C, b0, c0, lane);
-}
+
+  // The three indicators' A words of one row (rh: g or g + 8), byte by
+  // byte: m = [code == 3], g2 = [code == 2], g0 = code - 3 m.
+  static __device__ __forceinline__ void build(
+      const indicator_tile::Span<SPAN>& raw, AFrag& a, int rh) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t c = raw.word(j) & LOW2;
+      const uint32_t hi = c >> 1;
+      const uint32_t m = c & hi & 0x01010101u;
+      const uint32_t r = rh + 2 * (j & 1);
+      a[0][j >> 1][r] = c - 3u * m;
+      a[1][j >> 1][r] = m;
+      a[2][j >> 1][r] = hi & ~c & 0x01010101u;
+    }
+  }
+};
 
 }  // namespace
 
-// Zero ``out`` and launch on ``stream``.  B, N, C as above; C must be a
-// multiple of 128 and ``vs`` 4-byte aligned (the caller checks); ``codes``
-// may start at any byte.  Returns the CUDA error code of the launch
-// (0 = success).
-extern "C" int sg_indicator_dot(const void* codes, const void* vs, void* out,
-                                long long B, long long N, long long C,
-                                int device, void* stream) {
-  return indicator_tile::launch<int8_t>(indicator_dot_kernel, codes, vs,
-                                        out, B, N, (N + 3) / 4, C, device,
-                                        stream);
+// Zero ``out`` and launch on ``stream`` with column tiles of ``bn``.  B, N,
+// C as above; ``codes`` may start at any byte; ``vsk`` is the slices in the
+// kernel's order, int8 [C, Np] (Np = N rounded up to 128; see the header),
+// 16-byte aligned.  ``bn`` is 32, 64 or 96 and divides C, else
+// cudaErrorInvalidValue.  Returns the CUDA error code of the launch (0 =
+// success).
+extern "C" int sg_indicator_dot(const void* codes, const void* vsk,
+                                void* out, long long B, long long N,
+                                long long C, int bn, int device,
+                                void* stream) {
+  return indicator_tile::run<Bytes>(codes, vsk, out, B, N, C, bn, device,
+                                    stream);
 }

@@ -1,6 +1,7 @@
 // Scan phase 1 on Hopper: fused planar 2-bit decode + exact integer
 // contraction of every variant's genotype indicators with the sliced model
-// vectors, on the int8 tensor cores.
+// vectors, on the int8 tensor cores through the warpgroup MMA (wgmma) with
+// the slices brought in by TMA.
 //
 // Replaces saigegds_tpu/ops/pallas_score.py::_kernel2 (the Pallas body of
 // indicator_dot_2bit).  For a block of B variants, packed as uint8 [B, N4]
@@ -15,27 +16,29 @@
 // 2^17-sample segments existed only for f32 accumulators; there are none.
 //
 // What bounds it.  At the main-path shape (B = 1024 variants, N = 430,000
-// samples, C = 128 columns) the function reads 110 MB of packed codes and
-// 55 MB of slices (50 us at 3.35 TB/s) and does 3 * B * N * C = 1.7e14
-// multiply-adds, 3.4e14 int8 operations: 0.171 ms at the dense int8
-// tensor-core peak of 1,979 TOP/s, a rate only wgmma reaches.  So it is
-// bound by operations.  The first version ran them on the CUDA cores, four
-// samples a dot-product instruction (4.97 ms); this one runs them on
-// mma.sync.m16n8k32.s32.s8.s8.s32 (no .satfinite: exact).
+// samples, C = 96 columns: a model of three covariates, 88 live) the
+// function reads 110 MB of packed codes and 41 MB of slices (45 us at
+// 3.35 TB/s) and does 3 * B * N * C = 1.3e14 multiply-adds, 2.5e14 int8
+// operations: 0.128 ms at the dense int8 tensor-core peak of 1,979 TOP/s, a
+// rate only wgmma reaches.  So it is bound by operations.  The first
+// version ran them on the CUDA cores (__dp4a, 4.97 ms at C = 128), the
+// second on mma.sync m16n8k32 (0.93 ms at C = 128).
 //
-// Design.  k runs over (byte column j, plane p), as in B1 (plane_dot.cu):
-// the A word of variant b at byte column j is its packed byte with each bit
-// pair spread to a byte (spread_planes), the B word of column c is the four
-// planes' slice bytes vs4[0..3, j, c] (transpose4), so one mma covers 16
-// variants x 8 byte columns (32 samples) x 8 columns.  The block tile, the
-// in-register indicator split and the launch are B4's too
-// (indicator_tile.cuh).  Per stage (32 byte columns) a thread loads the
-// next stage's global bytes into registers before the current stage's
-// mmas, then spreads them into shared memory.  Two blocks per SM.  Rows
-// need not start 4-byte aligned (N4 = ceil(N/4) % 4 != 0 for three of four
-// sample counts): a thread loads the aligned words that cover its four
-// bytes and funnel-shifts them (int8_mma.cuh fetch4 / bytes4), so the
-// payload keeps the layout the host packs.
+// Design: the tile of indicator_tile.cuh (a producer warpgroup keeping TMA
+// loads of the slices' tiles in flight, two consumer warpgroups of 64
+// variants x BN columns x three indicators issuing wgmma m64nBNk32 with A
+// from registers), with this policy for the codes.  k runs over (stage
+// group G of 32 byte columns, plane p, half w, quad thread t, byte i): a
+// thread reads 8 packed bytes of each of its rows at byte column 8t of the
+// stage, words w = 0, 1, and the A word of k-step p, half w is plane p of
+// word w, one shift and one mask: byte i holds the code of byte column
+// 8t + 4w + i.  The indicators are split on the packed word first (three
+// logic operations for 16 codes), so the three A words of a plane cost two
+// operations each.  The slices are laid out in that order once per model
+// (ops/score_kernel.py operand_2bit): byte 128 G + 32 p + 16 w + 4 t + i
+// of column c is vs4[p, 32 G + 8 t + 4 w + i, c], zero past N4.  Rows need
+// not start aligned (N4 = ceil(N/4) is odd for half the sample counts):
+// the payload keeps the layout the host packs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,92 +47,55 @@
 
 namespace {
 
-using namespace indicator_tile;
-using namespace int8_mma;
+using indicator_tile::AFrag;
+using indicator_tile::LOW2;
 
-static_assert(TB * (JT / 4) == THREADS, "one A word a thread");
+// Planar 2-bit rows: a thread's 8 bytes of a row per stage (32 byte
+// columns, 128 k).
+struct Planar2 {
+  static constexpr int SPAN = 8;
 
-__global__ void __launch_bounds__(THREADS, 2)
-indicator_dot_2bit_kernel(const uint8_t* __restrict__ packed,
-                          const int8_t* __restrict__ vs4,
-                          int* __restrict__ out, int B, long long N4, int C,
-                          long long cols_per_split) {
-  // A, row r: spread planes of the stage's packed bytes of variant b0 + r
-  __shared__ __align__(16) uint32_t as[TB][AS];            // 4.5 KB
-  // B, byte column jj: word c holds planes 0..3 of column c0 + c
-  __shared__ __align__(16) uint32_t bs[JT][BS];            // 17 KB
-  constexpr int B_IT = JT * CQ / THREADS;       // column quads a thread
-
-  const Lane lane;
-  const int b0 = blockIdx.x * TB;
-  const int c0 = blockIdx.y * TC;
-  const long long jbeg = (long long)blockIdx.z * cols_per_split;
-  const long long jend = min(N4, jbeg + cols_per_split);
-  // the thread's A word: four byte columns of one row
-  const int ra_row = threadIdx.x / (JT / 4);
-  const int ra_col = 4 * (threadIdx.x % (JT / 4));
-  const uint8_t* ra_src = packed + (long long)(b0 + ra_row) * N4 + ra_col;
-  const bool ra_live = b0 + ra_row < B;
-  // the row's start modulo 4 (stages and ra_col are multiples of 4)
-  const uint32_t ra_low = (uint32_t)reinterpret_cast<uintptr_t>(ra_src);
-
-  // One stage's global reads, held in registers while the previous stage
-  // computes.  Rows past B read as code 0; bytes past the range may hold
-  // any code and meet zero slices, as bytes past B's rows meet nothing.
-  uint2 ra;
-  uint32_t rb[B_IT][4];
-  auto fetch = [&](long long j0) {
-    const long long left = jend - (j0 + ra_col);
-    ra = fetch4(ra_src + j0,
-                ra_live ? (int)max(0LL, min(4LL, left)) : 0);
-#pragma unroll
-    for (int it = 0; it < B_IT; ++it) {
-      const int e = threadIdx.x + it * THREADS;
-      const long long j = j0 + e / CQ;
-      const int8_t* src = vs4 + j * C + c0 + 4 * (e % CQ);
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        rb[it][p] = j < jend ? *reinterpret_cast<const uint32_t*>(
-                                   src + (long long)p * N4 * C)
-                             : 0u;
-    }
-  };
-  // ... then spread into A and transposed into B in shared memory
-  auto stash = [&]() {
-    const uint32_t x = bytes4(ra, ra_low);
-    *reinterpret_cast<uint4*>(&as[ra_row][ra_col]) =
-        make_uint4(spread_planes(x & 0xFFu), spread_planes((x >> 8) & 0xFFu),
-                   spread_planes((x >> 16) & 0xFFu), spread_planes(x >> 24));
-#pragma unroll
-    for (int it = 0; it < B_IT; ++it) {
-      const int e = threadIdx.x + it * THREADS;
-      *reinterpret_cast<uint4*>(&bs[e / CQ][4 * (e % CQ)]) =
-          transpose4(rb[it][0], rb[it][1], rb[it][2], rb[it][3]);
-    }
-  };
-
-  int acc[3][NT][4] = {};             // [indicator][n8 tile][fragment]
-  if (jbeg < jend) fetch(jbeg);
-  for (long long j0 = jbeg; j0 < jend; j0 += JT) {
-    stash();
-    __syncthreads();
-    if (j0 + JT < jend) fetch(j0 + JT);       // in flight during the mmas
-    contract_stage(as, bs, acc, lane);
-    __syncthreads();
+  // The slices' width in k for rows of n4 bytes: four planes of n4
+  // rounded up to a stage's 32 byte columns.
+  static constexpr long long width(long long n4) {
+    return 4 * ((n4 + 31) / 32 * 32);
   }
-  add_to_out(out, acc, B, C, b0, c0, lane);
-}
+
+  // The three indicators' A words of one row (rh: g or g + 8).  On a
+  // packed word, per 2-bit field: m = [code == 3] and g2 = [code == 2] in
+  // the field's low bit, g0 = code - 3 m (no borrow: the field holds 3
+  // wherever m does).
+  static __device__ __forceinline__ void build(
+      const indicator_tile::Span<SPAN>& raw, AFrag& a, int rh) {
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      const uint32_t x = raw.word(w);
+      const uint32_t hi = x >> 1;
+      const uint32_t m = x & hi & 0x55555555u;
+      const uint32_t g2 = hi & ~x & 0x55555555u;
+      const uint32_t g0 = x - 3u * m;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        a[0][p][rh + 2 * w] = (g0 >> (2 * p)) & LOW2;
+        a[1][p][rh + 2 * w] = (m >> (2 * p)) & LOW2;
+        a[2][p][rh + 2 * w] = (g2 >> (2 * p)) & LOW2;
+      }
+    }
+  }
+};
 
 }  // namespace
 
-// Zero ``out`` and launch on ``stream``.  B, N4, C as above; C must be a
-// multiple of 128 and ``vs4`` 4-byte aligned (the caller checks); ``packed``
-// may start at any byte.  Returns the CUDA error code of the launch
+// Zero ``out`` and launch on ``stream`` with column tiles of ``bn``.  B,
+// N4, C as above; ``packed`` may start at any byte; ``vs4k`` is the slices
+// in the kernel's order, int8 [C, 4 N4p] (N4p = N4 rounded up to 32; see
+// the header), 16-byte aligned.  ``bn`` is 32, 64 or 96 and divides C,
+// else cudaErrorInvalidValue.  Returns the CUDA error code of the launch
 // (0 = success).
-extern "C" int sg_indicator_dot_2bit(const void* packed, const void* vs4,
+extern "C" int sg_indicator_dot_2bit(const void* packed, const void* vs4k,
                                      void* out, long long B, long long N4,
-                                     long long C, int device, void* stream) {
-  return indicator_tile::launch<uint8_t>(indicator_dot_2bit_kernel, packed,
-                                         vs4, out, B, N4, N4, C, device,
-                                         stream);
+                                     long long C, int bn, int device,
+                                     void* stream) {
+  return indicator_tile::run<Planar2>(packed, vs4k, out, B, N4, C, bn,
+                                      device, stream);
 }

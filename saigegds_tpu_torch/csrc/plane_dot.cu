@@ -86,13 +86,13 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
-#include "int8_mma.cuh"
 #include "wgmma_s8.cuh"
 
 namespace {
 
-using int8_mma::transpose4;
 namespace wg = wgmma_s8;
+using wg::encode;
+using wg::misaligned;
 
 constexpr int CONSUMERS = 2;                    // consumer warpgroups
 constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
@@ -108,6 +108,20 @@ constexpr int CONSUMER_REGS = 232;
 static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 128 * CONSUMERS <= 65536,
               "the block's registers fit the SM");
 constexpr uint32_t LOW2 = 0x03030303u;          // one 2-bit code per byte
+
+// 4 x 4 byte transpose: word k of the result holds byte k of w0..w3 (in
+// that order, lowest byte first).
+__device__ __forceinline__ uint4 transpose4(uint32_t w0, uint32_t w1,
+                                            uint32_t w2, uint32_t w3) {
+  const uint32_t lo01 = __byte_perm(w0, w1, 0x5140);
+  const uint32_t hi01 = __byte_perm(w0, w1, 0x7362);
+  const uint32_t lo23 = __byte_perm(w2, w3, 0x5140);
+  const uint32_t hi23 = __byte_perm(w2, w3, 0x7362);
+  return make_uint4(__byte_perm(lo01, lo23, 0x5410),
+                    __byte_perm(lo01, lo23, 0x7632),
+                    __byte_perm(hi01, hi23, 0x5410),
+                    __byte_perm(hi01, hi23, 0x7632));
+}
 
 // Stages of ``bytes`` each that the ring holds, at most MAX_STAGES.
 constexpr int ring_stages(int bytes) {
@@ -409,53 +423,7 @@ fwd_rows_layout_kernel(const int8_t* __restrict__ rows,
 }
 
 // ---------------------------------------------------------------------------
-// host side
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, found through the CUDA runtime (no
-// link against libcuda; the runtime call needs CUDA 12.5 or later).
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-D uint8 tensor map: ``rows`` rows of ``cols`` bytes, ``stride`` bytes
-// apart, read in boxes of box_cols x box_rows with ``swizzle``.
-cudaError_t encode(CUtensorMap* map, const void* base, long long cols,
-                   long long rows, long long stride, int box_cols,
-                   int box_rows, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)stride};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// Rows ``row_bytes`` apart from ``base`` that do not start 16-byte aligned
-// (a tensor map's rule).
-bool misaligned(const void* base, long long row_bytes) {
-  return row_bytes % 16 != 0 || reinterpret_cast<uintptr_t>(base) % 16 != 0;
-}
+// host side (the tensor maps: wgmma_s8.cuh)
 
 // A column tile the kernels instantiate that divides C.
 bool valid_tile(long long C, int bn) {

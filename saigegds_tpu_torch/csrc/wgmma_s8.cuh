@@ -1,8 +1,9 @@
-// Hopper building blocks of kernels B1 and B2 (plane_dot.cu): the int8
-// warpgroup MMA with A in registers, shared-memory matrix descriptors for
-// tiles that TMA wrote with the 128-byte swizzle, mbarriers, TMA loads and
-// register reallocation between warpgroups.  Everything here is inline PTX
-// for sm_90a.
+// Hopper building blocks of the int8 tensor-core kernels B1 and B2
+// (plane_dot.cu), B3 (indicator_dot_2bit.cu) and B4 (indicator_dot.cu): the
+// int8 warpgroup MMA with A in registers, shared-memory matrix descriptors
+// for tiles that TMA wrote with the 128-byte swizzle, mbarriers, TMA loads,
+// register reallocation between warpgroups, and on the host the tensor
+// maps those loads read.  The device code is inline PTX for sm_90a.
 //
 // wgmma.mma_async m64nNk32 .s32.s8.s8 (no .satfinite: the s32 sums wrap
 // like int32 and the callers keep them exact).  A is a 64 x 32 s8 tile in
@@ -14,11 +15,12 @@
 // addressed by a descriptor.  d holds N/2 s32 of the 64 x N sum: for each
 // n8 chunk q, d[4q] and d[4q+1] are row 16w+g at columns 8q+2t and 8q+2t+1,
 // d[4q+2] and d[4q+3] row 16w+g+8 at the same columns.  The overloads below
-// differ only in N (16, 32, 64, 128, 256), picked by the size of d.
+// differ only in N (16, 32, 64, 96, 128, 256), picked by the size of d.
 
 #pragma once
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace wgmma_s8 {
@@ -169,6 +171,27 @@ __device__ __forceinline__ void mma(int (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// m64n96k32: d[48] += A (registers) x B (shared, K-major)
+__device__ __forceinline__ void mma(int (&d)[48], const uint32_t (&a)[4],
+                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // m64n128k32: d[64] += A (registers) x B (shared, K-major)
 __device__ __forceinline__ void mma(int (&d)[64], const uint32_t (&a)[4],
                                     uint64_t desc_b) {
@@ -232,6 +255,55 @@ __device__ __forceinline__ void mma(int (&d)[128], const uint32_t (&a)[4],
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
         "+r"(d[126]), "+r"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// host side: the tensor maps that the TMA loads above read
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the CUDA runtime (no
+// link against libcuda; the runtime call needs CUDA 12.5 or later).
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D uint8 tensor map: ``rows`` rows of ``cols`` bytes, ``stride`` bytes
+// apart, read in boxes of box_cols x box_rows with ``swizzle``.
+inline cudaError_t encode(CUtensorMap* map, const void* base, long long cols,
+                          long long rows, long long stride, int box_cols,
+                          int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Rows ``row_bytes`` apart from ``base`` that do not start 16-byte aligned
+// (a tensor map's rule).
+inline bool misaligned(const void* base, long long row_bytes) {
+  return row_bytes % 16 != 0 || reinterpret_cast<uintptr_t>(base) % 16 != 0;
 }
 
 }  // namespace wgmma_s8

@@ -39,7 +39,8 @@ import torch.nn.functional as F
 from .packed_grm import N_SLICES, _slice_i8
 from .score import ScanModel, ScanParams, ScoreStats, _valid_mask, \
     binary_stats, quant_stats, score_stats_binary, score_stats_quant
-from .score_kernel import indicator_dot, indicator_dot_2bit
+from .score_kernel import indicator_dot, indicator_dot_2bit, operand, \
+    operand_2bit, padded_cols
 from .sparse_codes import decode_codes
 
 _F64 = torch.float64
@@ -66,8 +67,14 @@ class PackedScanModel(NamedTuple):
     n_cov: int             # K
     vs4: torch.Tensor      # [4, N4, Cpad] int8 plane-split zero-padded slices
     #                        (plane p rows are natural samples p*N4 ..
-    #                        p*N4+N4-1); the same values the JAX package
-    #                        keeps in bf16, at half the bytes
+    #                        p*N4+N4-1); the live columns hold the values
+    #                        the JAX package keeps in bf16, at half the
+    #                        bytes; Cpad is score_kernel.padded_cols (the
+    #                        JAX package pads to a multiple of 128)
+    vs4k: torch.Tensor | None   # kernel B3's K-major layout of vs4
+    #                        (score_kernel.operand_2bit), made once per
+    #                        model on a card; None on the CPU
+    vsk: torch.Tensor | None    # kernel B4's of vs (score_kernel.operand)
     wts: torch.Tensor      # [2K+3, S] f64 slice combine weights
     # SPA phase 2 still needs the dense model
     dense: ScanModel
@@ -103,12 +110,14 @@ def pack_scan_model(model: ScanModel) -> PackedScanModel:
                          .to(dev), N_SLICES)              # [N, R, S], [R]
     R = V.shape[0]
     C = R * N_SLICES
-    Cpad = -(-C // 128) * 128
+    Cpad = padded_cols(C)
     # zero rows at padded samples kill every contraction term there (the
-    # pad code is irrelevant); zero columns pad C to the kernel's 128
+    # pad code is irrelevant); zero columns pad C to the kernels' tiles
     N4 = -(-N // 4)
     vs4 = F.pad(d.reshape(N, C), (0, Cpad - C, 0, 4 * N4 - N))
     vs4 = vs4.reshape(4, N4, Cpad).contiguous()
+    # the kernels' layouts, once per model (the plain versions read vs4)
+    on_card = vs4.device.type == "cuda"
     wts = scale.cpu().numpy()[:, None] / 64.0 \
         * (1.0 / 128.0) ** np.arange(N_SLICES)[None, :]
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=_F64, device=dev)
@@ -125,6 +134,8 @@ def pack_scan_model(model: ScanModel) -> PackedScanModel:
         var_ratio=model.var_ratio,
         n_cov=K,
         vs4=vs4,
+        vs4k=operand_2bit(vs4) if on_card else None,
+        vsk=operand(vs4.view(-1, Cpad)[:N]) if on_card else None,
         wts=t(wts),
         dense=model,
     )
@@ -132,14 +143,15 @@ def pack_scan_model(model: ScanModel) -> PackedScanModel:
 
 def _contract(pm: PackedScanModel, payload) -> torch.Tensor:
     """The block's three indicator contractions, f64 [B, 3, Cpad], by the
-    payload's route (2-bit -> B3, int8 -> B4, sparse -> B5 then B4)."""
+    payload's route (2-bit -> B3, int8 -> B4, sparse -> B5 then B4), the
+    kernels over the model's layouts of its slices."""
     if isinstance(payload, tuple):
         entries, row_ptr = payload
         payload = decode_codes(entries, row_ptr, row_ptr.shape[0] - 1,
                                pm.V.shape[1])
     if payload.dtype == torch.int8:
-        return indicator_dot(payload, pm.vs)
-    return indicator_dot_2bit(payload, pm.vs4)
+        return indicator_dot(payload, pm.vs, pm.vsk)
+    return indicator_dot_2bit(payload, pm.vs4, pm.vs4k)
 
 
 def _dot_last(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

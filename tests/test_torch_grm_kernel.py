@@ -17,9 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_mma import _bytes, _G as _G8, _T as _T4, _mma_m16n8k32, \
-    _words
-from test_torch_wgmma import _G, _T, _W, desc_read, tma_write, wgmma_m64nNk32
+from test_torch_wgmma import LOW2, _G, _T, _W, _bytes, _words, \
+    stage_b as _stage_b, wgmma_m64nNk32
 from saigegds_tpu_torch.ops import grm_kernel
 from saigegds_tpu_torch.ops.packed_grm import store_width
 
@@ -158,8 +157,6 @@ def test_wrappers_reject(kernel, bad):
 # The kernels' tiling and fragment maps (the warpgroup MMA and the swizzled
 # tiles are emulated in test_torch_wgmma), mirroring csrc/plane_dot.cu.
 
-LOW2 = np.uint32(0x03030303)
-
 
 def _tiling(C: int):
     """Column tile, m64 tiles per consumer warpgroup, B1's variants and
@@ -170,20 +167,9 @@ def _tiling(C: int):
 
 
 def _transpose4(w0, w1, w2, w3):
-    """``int8_mma.cuh`` ``transpose4``: word k holds byte k of w0 .. w3."""
+    """``plane_dot.cu`` ``transpose4``: word k holds byte k of w0 .. w3."""
     b = _bytes(np.stack([w0, w1, w2, w3], axis=-1)).astype(np.uint8)
     return [_words(np.moveaxis(b[..., :, k], -1, 0)) for k in range(4)]
-
-
-def _stage_b(op: np.ndarray, c0: int, bn: int, k0: int):
-    """A stage's slice tile through shared memory: TMA's box of ``bn`` rows
-    x 128 bytes at (k0, c0), zero past the operand, written with the
-    128-byte swizzle; its four k32 steps as the descriptor reads them."""
-    box = np.zeros((bn, 128), np.int8)
-    part = op[c0:c0 + bn, k0:k0 + 128]
-    box[:part.shape[0], :part.shape[1]] = part
-    smem = tma_write(box)
-    return [desc_read(smem, 32 * ks, bn) for ks in range(4)]
 
 
 def _fwd_by_fragments(packed: np.ndarray, d4: np.ndarray,
@@ -290,24 +276,6 @@ def _t_by_fragments(packed: np.ndarray, dm: np.ndarray) -> np.ndarray:
                                     c0 + 8 * q + 2 * _T + e] = \
                                     acc[wgi, ti, :, 4 * q + 2 * rh + e]
     return out[:, :N4]
-
-
-def test_mma_fragment_map_is_a_matrix_product():
-    """The emulated mma against a plain int32 product of the same tiles."""
-    rng = np.random.default_rng(6)
-    A = rng.integers(-128, 128, size=(16, 32), dtype=np.int8)
-    B = rng.integers(-128, 128, size=(32, 8), dtype=np.int8)
-    k4 = 4 * _T4[:, None] + np.arange(4)
-    word = lambda v: _words(np.moveaxis(v, -1, 0))          # noqa: E731
-    a = np.stack([word(A[_G8[:, None], k4]), word(A[_G8[:, None] + 8, k4]),
-                  word(A[_G8[:, None], k4 + 16]),
-                  word(A[_G8[:, None] + 8, k4 + 16])], axis=1)
-    b = np.stack([word(B[k4, _G8[:, None]]), word(B[k4 + 16, _G8[:, None]])],
-                 axis=1)
-    D = A.astype(np.int32) @ B.astype(np.int32)
-    d = _mma_m16n8k32(a, b)
-    np.testing.assert_array_equal(d[:, 0], D[_G8, 2 * _T4])
-    np.testing.assert_array_equal(d[:, 3], D[_G8 + 8, 2 * _T4 + 1])
 
 
 @pytest.mark.parametrize("shape", [(37, 83, 128), (17, 130, 256),

@@ -1,21 +1,44 @@
-"""The warpgroup MMA of kernels B1 and B2 (``csrc/plane_dot.cu``,
-``csrc/wgmma_s8.cuh``) in numpy, on the CPU.
+"""The warpgroup MMA of the port's int8 tensor-core kernels B1-B4
+(``csrc/plane_dot.cu``, ``csrc/indicator_tile.cuh``, ``csrc/wgmma_s8.cuh``)
+in numpy, on the CPU.
 
-On the card B1 and B2 contract on ``wgmma.mma_async.sync.aligned.m64nNk32
+On the card the kernels contract on ``wgmma.mma_async.sync.aligned.m64nNk32
 .s32.s8.s8`` with A in the warpgroup's registers and B a K-major tile in
 shared memory that TMA wrote with the 128-byte swizzle and a matrix
 descriptor addresses.  This module emulates the pieces as the PTX ISA and
 the tensor maps lay them out -- the A fragment of the 128 threads, the s32
 accumulator registers, and the swizzled tile as the copy writes it and the
 descriptor reads it -- and holds each against a plain int32 product or
-the tile itself, exactly.  ``test_torch_grm_kernel.py``
-composes them into B1 and B2 contracted fragment by fragment.
+the tile itself, exactly.  ``test_torch_grm_kernel.py`` composes them into
+B1 and B2 contracted fragment by fragment; :func:`indicator_tile` composes
+them into the tile that B3 and B4 share, whose test files give it their
+kernels' A words (``test_torch_score_kernel.py``,
+``test_torch_indicator_dot.py``).
 """
 
 import numpy as np
 import pytest
 
-from test_torch_mma import _bytes, _words
+LOW2 = np.uint32(0x03030303)            # one 2-bit value per byte
+
+def _bytes(words: np.ndarray) -> np.ndarray:
+    """uint32 words [..., n] -> their s8 bytes as int32 [..., n, 4]."""
+    w = np.ascontiguousarray(words, dtype="<u4")
+    return w.view(np.int8).reshape(*w.shape, 4).astype(np.int32)
+
+
+def _words(b: np.ndarray) -> np.ndarray:
+    """Four int8/uint8 planes [4, ...] -> one uint32 word each, plane k in
+    byte k (a word of four consecutive k, lowest first)."""
+    u = b.astype(np.uint8).astype(np.uint32)
+    return u[0] | (u[1] << 8) | (u[2] << 16) | (u[3] << 24)
+
+
+def _pad(a: np.ndarray, axis: int, mult: int) -> np.ndarray:
+    widths = [(0, 0)] * a.ndim
+    widths[axis] = (0, -a.shape[axis] % mult)
+    return np.pad(a, widths)
+
 
 _TH = np.arange(128)                    # the warpgroup's threads
 _W, _G, _T = _TH >> 5, (_TH & 31) >> 2, _TH & 3   # warp, group, thread
@@ -97,6 +120,84 @@ def desc_sw128(addr: int) -> int:
         (1 << 62)
 
 
+def stage_b(op: np.ndarray, c0: int, bn: int, k0: int):
+    """A stage's slice tile through shared memory: TMA's box of ``bn`` rows
+    x 128 bytes at (k0, c0) of a K-major operand [C, width], zero past it,
+    written with the 128-byte swizzle; its four k32 steps as the
+    descriptor reads them."""
+    box = np.zeros((bn, 128), np.int8)
+    part = op[c0:c0 + bn, k0:k0 + 128]
+    box[:part.shape[0], :part.shape[1]] = part
+    smem = tma_write(box)
+    return [desc_read(smem, 32 * ks, bn) for ks in range(4)]
+
+
+def fetch_span(flat: np.ndarray, p: np.ndarray, n: np.ndarray,
+               span: int) -> np.ndarray:
+    """``Span::fetch`` and ``word`` of ``indicator_tile.cuh`` for each
+    thread: the ``span`` bytes from byte address p [T] of the buffer
+    ``flat`` (uint8, its start aligned), of which the first n [T] are the
+    row's, as the aligned words that cover them (none loaded that holds no
+    byte of the row: zero instead) funnel-shifted together -> uint32
+    [T, span / 4]."""
+    s = p & 3
+    k = np.arange(span // 4 + 1)
+    load = (n[:, None] > 0) & (4 * k[None, :] < s[:, None] + n[:, None])
+    at = np.where(load, p[:, None] - s[:, None] + 4 * k[None, :], 0)
+    b = flat[at[..., None] + np.arange(4)].astype(np.uint64)
+    w = (b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24) \
+        * load
+    pair = (w[:, 1:] << np.uint64(32)) | w[:, :-1]
+    return (pair >> (8 * s[:, None]).astype(np.uint64)).astype(np.uint32)
+
+
+def indicator_tile(codes: np.ndarray, off: int, span: int, build,
+                   op: np.ndarray, bn: int) -> np.ndarray:
+    """B3 or B4 as ``indicator_tile.cuh`` contracts them: the codes, rows of
+    ``row_bytes`` bytes, ``off`` bytes into an aligned buffer; blocks of 128
+    variants x ``bn`` columns; per stage group of 128 k, the slice tile of
+    the K-major operand op [C, width] through TMA and the descriptor, each
+    consumer thread's ``span`` bytes at byte ``span t`` of the stage of its
+    rows g and g + 8 (``fetch_span``), turned into its A words by ``build``
+    (the kernel's policy: build(words [128, span / 4], a [3, 4, 128, 4],
+    rh)), one wgmma m64nBNk32 per indicator and k-step, and the epilogue's
+    rows and columns -> int64 [B, 3, C]."""
+    B, row_bytes = codes.shape
+    C, width = op.shape
+    flat = np.concatenate([np.zeros(off, np.uint8),
+                           codes.reshape(-1).view(np.uint8),
+                           np.zeros(4, np.uint8)])
+    out = np.zeros((B, 3, C), np.int64)
+    for b0 in range(0, B, 128):
+        for c0 in range(0, C, bn):
+            acc = np.zeros((2, 3, 128, bn // 2), np.int64)
+            for grp in range(width // 128):
+                b = stage_b(op, c0, bn, 128 * grp)
+                for wgi in range(2):
+                    a = np.zeros((3, 4, 128, 4), np.uint32)
+                    for rh in range(2):
+                        row = b0 + 64 * wgi + 16 * _W + 8 * rh + _G
+                        j = 4 * span * grp + span * _T
+                        n = np.where(row < B, np.clip(row_bytes - j, 0, span),
+                                     0)
+                        p = off + np.where(row < B, row, 0) * row_bytes + j
+                        build(fetch_span(flat, p, n, span), a, rh)
+                    for ks in range(4):
+                        for x in range(3):
+                            acc[wgi, x] += wgmma_m64nNk32(a[x, ks], b[ks])
+            for wgi in range(2):
+                for rh in range(2):
+                    row = b0 + 64 * wgi + 16 * _W + 8 * rh + _G
+                    live = row < B
+                    for x in range(3):
+                        for q in range(bn // 8):
+                            for e in range(2):
+                                out[row[live], x, c0 + 8 * q + 2 * _T[live]
+                                    + e] += acc[wgi, x, live, 4 * q + 2 * rh
+                                                + e]
+    return out
+
+
 @pytest.mark.parametrize("n", [16, 128, 256])
 def test_wgmma_fragments_are_a_matrix_product(n):
     """The emulated m64nNk32, fed the A fragment built element by element,
@@ -137,3 +238,22 @@ def test_swizzled_tile_read_by_descriptor(n):
         assert desc_sw128(1024 * 3 + 32 * s) == desc_sw128(1024 * 3) + 2 * s
     assert desc_sw128(0x1400) >> 62 == 1 and \
         (desc_sw128(0) >> 32) & 0x3FFF == 64
+
+
+@pytest.mark.parametrize("span", [8, 32])
+def test_fetch_span_reads_only_the_row(span):
+    """The span at every start modulo 4 and every count n of the row's
+    bytes gives those bytes in order, and reads no word that holds none of
+    them: past the word of the row's last byte (the buffer's bytes there
+    are 0xEE) the span is zero."""
+    rng = np.random.default_rng(span)
+    for off in range(4):
+        for n in range(span + 1):
+            flat = np.concatenate([rng.integers(0, 256, size=off + n,
+                                                dtype=np.uint8),
+                                   np.full(span + 8, 0xEE, np.uint8)])
+            w = fetch_span(flat, np.array([off]), np.array([n]), span)
+            got = _bytes(w)[0].astype(np.uint8).reshape(-1)
+            np.testing.assert_array_equal(got[:n], flat[off:off + n])
+            end = 4 * -(-(off + n) // 4) - off if n else 0
+            assert not got[end:].any()
