@@ -27,8 +27,12 @@ and prints no result line):
    (``plane_dot_t``) at three ragged shapes (37, 129 and 129 variants x
    1,031 and 1,069 samples, C = 128, 256 and 16) and over one store of the
    fit's shape (M = 16,384 GRM variants, N = 430,000) at every column
-   tile, C = 16, 32, 64, 128 and 256, and at C = 768 (three tiles of
-   256, as the PheWAS fit runs), each over a store of the GRM store's
+   tile, C = 16, 32, 64, 128 and 256, and looped as the PheWAS fit runs
+   them, at C = 384 (three tiles of 128), 768 (three tiles of 256) and
+   2,048 (eight tiles of 256, the widest C of the PheWAS fit at its
+   smallest split); from phase 4 on the run fails if a fit ran B1 and B2
+   at a C whose tile and looping (``grm_kernel.column_tile``) phase 3 did
+   not hold; each over a store of the GRM store's
    width, B1 from the slices' sample rows as the fit hands them over
    (``plane_dot_fwd_rows``, so each time includes the wrapper's re-layout
    of its operand; the general wrapper ``plane_dot_fwd`` held equal to
@@ -78,7 +82,7 @@ and prints no result line):
    over the model packed once, as the scan packs it (device ms by kernel;
    it fails if the block made a layout of the slices or did not launch
    B3 once);
-5. the fit held against the CPU: one GRM product over the first 2,048 GRM
+5. the fit held against the CPU: one GRM product over the first 1,024 GRM
    variants at full N (31 columns) on the card and on the CPU, within
    1e-12 relative; a small fit (2,000 samples x 1,000 variants) on both,
    within 1e-8 relative with the same iteration counts;
@@ -95,9 +99,10 @@ and prints no result line):
    lacks, at shuffled positions, so that every block is gathered to the
    model's samples on the host; ``assoc_spa(..., device="cuda")`` with
    1,024-variant blocks; B3 must launch once per block, every p-value must
-   lie in [0, 1] and some variants must go through SPA; then the first block
-   again on the CPU, whose table must agree with the card's within 1e-10
-   relative, and on the card through the int8 route
+   lie in [0, 1] and some variants must go through SPA; then the first
+   block's first 256 variants (``CPU_ROWS``) on the CPU, whose table
+   must agree with the card's within 1e-10 relative, and the first block
+   on the card through the int8 route
    (``packed_2bit=False``, one B4 launch), held to the CPU's table too;
 8. the same scan from the quantitative model: B3 once per block, no
    variant through SPA, no ``p.norm`` or ``converged`` column, the first
@@ -112,12 +117,12 @@ and prints no result line):
    ``AggregateConfig``: every p-value in [0, 1], some rows through SPA, and
    B5 launched once per sparse payload, B4 once per sparse single-variant
    payload; ``assoc_burden`` and ``assoc_acat_v`` on the card over the
-   first 32 units equal ACAT-O's burden and ACAT-V columns within 1e-12;
-   the first 16 units on the CPU agree with the card within 1e-10 relative
+   first 16 units equal ACAT-O's burden and ACAT-V columns within 1e-12;
+   the first 8 units on the CPU agree with the card within 1e-10 relative
    on every p-value column, with the same NaN pattern;
 10. ``assoc_burden`` of the quantitative model over phase 9's GDS and
    units: B5 once per sparse payload and no other kernel, no row through
-   SPA, every p-value in [0, 1], the first 16 units on the CPU within
+   SPA, every p-value in [0, 1], the first 8 units on the CPU within
    1e-10 relative with the same NaN pattern; ``assoc_acat_o`` on the
    quantitative model raises NotImplementedError;
 11. the scan of imputed dosages at N = 430,000: a DS GDS (``annotation/
@@ -130,11 +135,12 @@ and prints no result line):
    their blocks ship f32).  ``assoc_spa`` from phase 4's model in blocks
    of 256, so the three-stage pipeline runs: no kernel launches (the dense
    f64 route), every p-value in [0, 1], some rows through SPA, the first
-   block on the CPU within 1e-10 relative with the same NaN pattern and
-   SPA set; the stage sums, variants/s, bytes shipped and peak device
-   memory are printed, and the dense phase 1 of one block is timed by CUDA
-   events beside its bound (the larger of its f64 bytes at 3.35 TB/s and
-   its f64 operations at 34 TFLOP/s).  Then the quantitative model's scan
+   block's first 128 variants on the CPU within 1e-10 relative with the
+   same NaN pattern and SPA set; the stage sums, variants/s, bytes
+   shipped and peak device memory are printed, and the dense phase 1 of
+   one block is timed by CUDA events beside its bound (the larger of its
+   f64 bytes at 3.35 TB/s and its f64 operations at 34 TFLOP/s).  Then
+   the quantitative model's scan
    of the same file, with the same checks (nothing to SPA);
 12. the dense route against the packed route: ``dsnode="$dosage_alt"``
    over phase 7's first 1,024 variants from phase 4's model; its table
@@ -146,7 +152,7 @@ and prints no result line):
    batches its SPA rows across blocks, which moves the last bits);
 13. the gene tests over the DS file: 16 units of 32 contiguous variants;
    ``assoc_acat_o`` from the binary model and ``assoc_burden`` from the
-   quantitative one on the card: every p-value in [0, 1], the first 4
+   quantitative one on the card: every p-value in [0, 1], the first 2
    units on the CPU within 1e-10 with the same NaN pattern; the rows sent
    the packed way (B5/B4 or B3, launched once per payload) and the dense
    way are printed, with the launches;
@@ -163,19 +169,37 @@ and prints no result line):
    (tau, coefficients, fitted values, variance ratios, markers, outer
    iterations), the checkpoint files gone;
 16. the PheWAS fit at full width: ``fit_null_glmm_multi`` over phase 4's
-   GDS with P = 4 binary phenotypes (phase 4's ``y`` and three more from
-   the same genetic values at case fractions of about 10%, 20% and 50%),
-   one ingest (counted); every lane converges with tau_G > 0 and finite
-   variance ratios, B1 and B2 launch once per GRM product; the wall time,
-   the products by the kernels' column count C and the PCG iterations are
-   printed beside phase 4's one fit; then the quantitative PheWAS fit
-   (``yq``, ``yq2``) at the small fit's size on the card and on the CPU,
-   within 1e-8 with the same iterations;
-17. the PheWAS scan: ``assoc_spa_multi`` over phase 7's GDS with the four
-   lanes and phase 6's quantitative model (P = 5), in blocks of 1,024: B3
+   GDS at the least P that the group rule (``fit_device._lane_groups``)
+   splits into two groups or more on this card, reckoned from the free
+   memory before the fit: phase 4's ``y``, three more phenotypes from the
+   same genetic values at case fractions of about 10%, 20% and 50%, and
+   the rest at case fractions spread over 5-50% (``yp0``, ...), one
+   ingest (counted); it fails unless the AI-REML fit ran in two groups or
+   more; every lane converges with tau_G > 0 and finite variance ratios,
+   B1 and B2 launch once per GRM product; P, the groups of the AI-REML
+   fit and of the variance ratios, the wall split, the products by the
+   kernels' column count C, the PCG iterations and the peak device
+   memory against the card's are printed beside phase 4's one fit; then
+   the bytes a lane adds, measured over the fit's operator (the peak
+   allocated at 2, 4 and 6 lanes of each fitter stopped after its first
+   stage, and of the fit's variance-ratio pass) against the rule's
+   reckoning, which it must not exceed; the largest group the rule
+   allows then, in one group, for the binary and the quantitative fitter
+   through their first outer iteration and for the variance-ratio pass
+   whole, each with its peak allocated and reserved printed beside the
+   free memory; at the
+   small fit's size the PheWAS fit of ``y`` and the three ``yb``
+   phenotypes with the groups forced to 1 and 2 lanes equals one group
+   within 1e-10 (same iterations and markers), the public one-lane
+   fitters ``fit_glmm_binary_device`` and ``fit_glmm_quant_device`` agree
+   on the card and the CPU within 1e-8 with the same iterations, and the
+   quantitative PheWAS fit (``yq``, ``yq2``) likewise;
+17. the PheWAS scan: ``assoc_spa_multi`` over phase 7's GDS with phase
+   16's first four lanes (``y`` and the ``yb`` phenotypes) and phase 6's
+   quantitative model (P = 5), in blocks of 1,024: B3
    launches P times per block, each block is decoded once (``decode_s``
    beside phase 7's), the quantitative lane's table equals phase 8's
-   within 1e-10, lane 0's first block on the CPU within 1e-10;
+   within 1e-10, lane 0's first 256 variants on the CPU within 1e-10;
    variants x models per second beside phase 7's variants per second;
    then the first block again with ``transport_policy="static"``: its
    rare rows ship as the gap-coded stream, so B5 and B4 launch P times
@@ -185,15 +209,15 @@ and prints no result line):
 18. GxG: ``gxg_spa`` with phase 4's GDS as the GRM (its first 4,096
    variants, by ``variant_id=``) and phase 7's GDS as the tested SNPs,
    8 pairs of common variants, ``use_approx_tau=True`` from tau_G = 0.1
-   (it must end positive): ``pair_batch=8``
-   equals the serial path (with the GLM screen at 1.0) on the first 4
-   pairs within 1e-10, every p-value in [0, 1], B1 and B2 once per
-   product, seconds per pair printed; one pair from the default start
-   (1, 0.5), whose approximate tau_G is printed (0 in both packages at
-   this panel shape, tests/test_torch_gxg_start.py); then full per-pair
-   refits, serial
-   and ``pair_batch=4``, at the small fit's size on the card and on the
-   CPU: within 1e-8, the same PCG iterations and products;
+   (it must end positive), ``pair_batch=8``: every p-value in [0, 1], B1
+   and B2 once per product, seconds per pair printed; one pair from the
+   default start (1, 0.5), whose approximate tau_G is printed (0 in both
+   packages at this panel shape, tests/test_torch_gxg_start.py), its
+   p-value in [0, 1] and B1 and B2 once per product; then at the small fit's
+   size the batched approximate-tau path equals the serial one (with the
+   GLM screen at 1.0) within 1e-10 on the card, and full per-pair
+   refits, serial and ``pair_batch=4``, on the card and on the CPU:
+   within 1e-8, the same PCG iterations and products;
 19. the mesh: ``make_mesh(devices=["cuda:0"] * 2)``, two shards on the
    one card (this proves the sharded paths and measures what sharding
    costs, not a speed-up): ``fit_null_glmm(..., mesh=)`` over phase 5's
@@ -223,8 +247,9 @@ and prints no result line):
    ranks non-zero by the lead's abort, inside a time limit;
 21. the command line: ``python -m saigegds_tpu_torch`` with ``--device
    cuda`` in a process of its own for ``fit --pheno-cols``, ``scan`` with
-   two ``--model``, ``gxg``, ``merge`` and ``info`` on the small fit's
-   data; each output against the API's on the card (fits and GxG 1e-8,
+   two ``--model`` (the API's models), ``gxg``, ``merge`` and ``info`` on
+   the small fit's data, the commands that need no other's output at
+   once; each output against the API's on the card (fits and GxG 1e-8,
    tables 1e-10, the merge equal, info names the card).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -255,6 +280,8 @@ N_ASSOC = 16            # variants of the first block tied to the phenotype
 N_EXTRA = 16            # scan GDS samples outside the model
 SEED = 20261016
 RTOL = 1e-10            # card vs CPU table agreement
+CPU_ROWS = 256          # variants of phase 7's and 17's first block held
+#                         against the CPU (the first N_ASSOC among them)
 SCAN_C = 96             # C of B3 and B4 on the main paths: 88 live columns
 #                         (2K + 3 vectors x 8 slices, K = 4) padded to a tile
 SCAN_WIDE = 384         # a multi-tile C (four tiles of 96)
@@ -263,15 +290,16 @@ KERNEL_SHAPES = [(37, 1031, SCAN_C), (BLOCK, N_SAMPLES, SCAN_C),
 M_FIT = 16_384          # GRM variants of the fit (bench.py M_FITMIX)
 FIT_SMALL = (2000, 1000)  # samples x variants of the card-vs-CPU fit
 GRM_SHAPES = [(37, 1031, 128), (129, 1031, 256), (129, 1069, 16)]
-GRM_WIDTHS = (16, 32, 64, 128, 256, 768)   # C of B1 and B2 over the fit's
-#                                            store: every tile, and tiles
-#                                            of 256 looped (PheWAS)
+GRM_WIDTHS = (16, 32, 64, 128, 256, 384, 768, 2048)   # C of B1 and B2
+#                 over the fit's store: every tile, tiles of 128 and of
+#                 256 looped, and the widest C the PheWAS fit has run
 GRM_MAIN = len(GRM_SHAPES) + GRM_WIDTHS.index(64)   # the JSON line's shape:
 #                                            the fit's most frequent C
-MV_ROWS, MV_COLS = 2048, 31  # the card-vs-CPU GRM product
+MV_ROWS, MV_COLS = 1024, 31  # the card-vs-CPU GRM product
 PROFILE_COLS = 30       # columns of the profiled full-width GRM product
 RTOL_MV = 1e-12         # card vs CPU GRM product (f64 atomics reorder)
 RTOL_FIT = 1e-8         # card vs CPU small fit
+RTOL_GROUP = 1e-10      # a PheWAS fit in groups against one group
 FORMULA = "y ~ x1 + x2 + x3"
 FORMULA_Q = "yq ~ x1 + x2 + x3"   # the quantitative phenotype of the fit data
 H2_Q = 0.4              # its heritability
@@ -279,8 +307,9 @@ N_DS = 1024             # imputed variants of the DS phase
 DS_BLOCK = 256          # its scan blocks
 DS_ASSOC = 8            # DS variants tied to the phenotype
 DS_TYPED = (256, 640)   # typed (integer-valued) DS variants
+DS_CPU_ROWS = 128       # DS variants of the first block held against the CPU
 DS_NOISY, DS_NOISE = 0.1, 0.15   # share of noisy dosages, the noise's sd
-DS_UNITS, DS_UNIT, DS_CPU_UNITS = 16, 32, 4   # DS gene units, their size,
+DS_UNITS, DS_UNIT, DS_CPU_UNITS = 16, 32, 2   # DS gene units, their size,
 #                                              units held against the CPU
 RTOL_USER = 1e-12       # assoc_spa_user against the DS scan's rows
 CAT_EDGES = (10.5, 20.5)  # MAC categories of the categorized fit
@@ -295,13 +324,16 @@ N_AGG = 16_384          # variants of the aggregate phase's GDS
 N_UNITS = 512           # gene units of 8-64 contiguous variants
 N_UNITS_RUN = 64        # the units the aggregate tests run (the first)
 ENRICHED_UNITS = (1, 40, 100, 170, 250, 330, 410, 490)
-AGG_SUB, AGG_CPU = 32, 16   # units of the burden/ACAT-V and CPU checks
+AGG_SUB, AGG_CPU = 16, 8    # units of the burden/ACAT-V and CPU checks
 RTOL_AGG = 1e-12        # burden and ACAT-V against ACAT-O on the card
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
 N_ALT = 1024            # phase 7's variants that the $dosage_alt scan reads
 PHEWAS_CASES = (10, 20, 50)   # case % of the PheWAS fit's extra phenotypes
+PHEWAS_MORE = 16        # binary phenotypes beyond them at full width
+PHEWAS_SPREAD = (5.0, 50.0)   # their case %: any first k spread over this
+#                               range (a van der Corput order)
 N_PAIRS, GXG_M = 8, 4096      # GxG pairs; GRM variants of its panel
-GXG_BATCH, GXG_SERIAL = 8, 4  # its pair batch; pairs also run serially
+GXG_BATCH = 8           # its pair batch
 GXG_SMALL_PAIRS = ((11, 12), (40, 90), (75, 150), (300, 500))
 # GxG's start of tau_G for the batched-against-serial check: from the
 # default start (1, 0.5) the base fit on a 4,096-variant panel of the
@@ -632,6 +664,26 @@ def trace_scan_block(model, device, gen):
                      for k, v in sorted(by_name.items(),
                                         key=lambda kv: -kv[1]))
            or "not measured (the profiler recorded no device events)"))
+
+
+def grm_config(C: int) -> tuple:
+    """B1 and B2's configuration at C slice columns: the kernels' column
+    tile and whether they loop over tiles of it."""
+    from saigegds_tpu_torch.ops.grm_kernel import column_tile
+    return column_tile(C), C > column_tile(C)
+
+
+def held_widths(what: str, widths):
+    """Fail if ``what`` ran B1 and B2 at a C whose configuration
+    (:func:`grm_config`) phase 3 did not hold against the plain versions
+    at full width (GRM_WIDTHS)."""
+    held = {grm_config(C) for C in GRM_WIDTHS}
+    missing = sorted(int(C) for C in widths
+                     if grm_config(int(C)) not in held)
+    if missing:
+        raise AssertionError(f"{what} ran B1 and B2 at C = {missing}, "
+                             f"whose tile and looping phase 3 does not "
+                             f"hold against the plain versions")
 
 
 def random_store(M: int, N: int, device, gen):
@@ -1019,8 +1071,35 @@ def with_extra_samples(codes: np.ndarray, sample_id: np.ndarray,
     return np.insert(codes, at, extra, axis=1), ids
 
 
+def case_fraction_pheno(rng, liability: np.ndarray, pct: float,
+                        iters: int = 60) -> np.ndarray:
+    """A binary phenotype of ``liability`` (logit scale) with an intercept
+    set by bisection so that its expected case share is ``pct`` %."""
+    lo, hi = -20.0, 20.0
+    for _ in range(iters):
+        c = (lo + hi) / 2
+        if np.mean(1 / (1 + np.exp(-(liability + c)))) < pct / 100:
+            lo = c
+        else:
+            hi = c
+    return (rng.random(len(liability)) < 1 / (1 + np.exp(
+        -(liability + c)))).astype(np.float64)
+
+
+def spread_pct(k: int) -> float:
+    """The k-th case % (k >= 0) of the extra PheWAS phenotypes: PHEWAS_SPREAD
+    in van der Corput order, so any first few cover the range."""
+    v, f, i = 0.0, 0.5, k + 1
+    while i:
+        v += f * (i & 1)
+        i >>= 1
+        f /= 2
+    lo, hi = PHEWAS_SPREAD
+    return lo + (hi - lo) * v
+
+
 def make_fit_data(n_samples: int, n_variants: int, device, seed: int,
-                  rare_share: float = 0.0):
+                  rare_share: float = 0.0, more_phenotypes: int = 0):
     """(int8 codes [M, N], data dict) of a polygenic binary trait ``y``, as
     bench.py's fit data: allele frequencies uniform in 0.05-0.5, effects
     giving a genetic variance of 0.6 on the logit scale, three covariates
@@ -1030,7 +1109,10 @@ def make_fit_data(n_samples: int, n_variants: int, device, seed: int,
     noise (log-normal, as for BMI), drawn after ``y`` from the same
     stream, so that ``y`` is the same with or without it.  A share
     ``rare_share`` of the variants, drawn from another stream, has allele
-    frequencies 0.002-0.01 instead."""
+    frequencies 0.002-0.01 instead.  ``more_phenotypes`` binary traits
+    ``yp0``, ``yp1``, ... of the same genetic values at the case fractions
+    of :func:`spread_pct` come last, from a stream of their own, so that
+    every other column is the same with or without them."""
     import torch
     rng = np.random.default_rng(seed)
     af = rng.uniform(0.05, 0.5, n_variants)
@@ -1071,18 +1153,14 @@ def make_fit_data(n_samples: int, n_variants: int, device, seed: int,
     # same genetic values at other case fractions, and a second
     # quantitative trait with a fresh noise
     for pct in PHEWAS_CASES:
-        lo, hi = -20.0, 20.0
-        for _ in range(60):              # intercept of that prevalence
-            c = (lo + hi) / 2
-            if np.mean(1 / (1 + np.exp(-(X @ alpha + c + g)))) < pct / 100:
-                lo = c
-            else:
-                hi = c
-        data[f"yb{pct}"] = (rng.random(n_samples) < 1 / (1 + np.exp(
-            -(X @ alpha + c + g)))).astype(np.float64)
+        data[f"yb{pct}"] = case_fraction_pheno(rng, X @ alpha + g, pct)
     e2 = np.exp(rng.normal(size=n_samples) * 0.6)
     data["yq2"] = X @ alpha + g + (e2 - e2.mean()) / e2.std() * np.sqrt(
         g.var() * (1 - H2_Q) / H2_Q)
+    more = np.random.default_rng(seed + 7)
+    for k in range(more_phenotypes):
+        data[f"yp{k}"] = case_fraction_pheno(more, X @ alpha + g,
+                                             spread_pct(k), iters=30)
     data.update({f"x{i}": X[:, i] for i in range(1, N_COV + 1)})
     return codes, data
 
@@ -1685,10 +1763,11 @@ def ds_scan(y: np.ndarray, sample_id: np.ndarray, model, model_q,
             f"{stages['decode_s'] / n_blocks:.3f} s, pack (gather and "
             f"f32 check) {stages['pack_s'] / n_blocks:.3f} s, upload "
             f"{stages['upload_s'] / n_blocks:.3f} s")
-        cpu, _, wall_cpu = scan(gds, m, "cpu", variant_mask=mask,
-                                block=DS_BLOCK)
+        cpu, _, wall_cpu = scan(gds, m, "cpu", variant_mask=mask & (
+            np.arange(N_DS) < DS_CPU_ROWS), block=DS_BLOCK)
         worst = compare_dense(tab, cpu, RTOL)
-        log(f"first DS block on the CPU ({name}): {len(cpu['pval'])} rows "
+        log(f"first DS block's first {DS_CPU_ROWS} variants on the CPU "
+            f"({name}): {len(cpu['pval'])} rows "
             f"within {worst:.3e} of the card (limit {RTOL}), the same NaN "
             f"pattern and SPA set, {wall_cpu:.1f} s")
         tables[name] = dict(tab=tab, wall=wall, stages=stages,
@@ -1920,62 +1999,425 @@ def fit_options(work: str, device, gds_s: str, data_s: dict,
         f"{inst_res['wall_s']:.1f} s")
 
 
+def phewas_lanes(n: int, K: int, nrun: int, op_bytes: int,
+                 device) -> int:
+    """The least P that ``fit_device._lane_groups`` splits into two groups
+    or more for a binary PheWAS fit on this card, reckoned before the fit:
+    the free memory now less the ``op_bytes`` its ingest adds (the store,
+    its pair lists and vectors).  The fitter sees less free memory (the
+    design, the probe pool and its products come out of it too), so its
+    groups for this P are two or more."""
+    import torch
+    from saigegds_tpu_torch.models import fit_device as fd
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(device)[0] - op_bytes
+    return fd._group_budget(free, n) // fd._lane_bytes(
+        n, K, 1 + max(K, nrun)) + 1
+
+
+def op_bytes(op) -> int:
+    """Device bytes of a fit's operator: the store, its missing-pair lists
+    and its vectors."""
+    return op.packed.numel() + op.miss.nbytes + 8 * (
+        op.af.numel() + op.inv.numel() + op.diag.numel())
+
+
+def var_ratio_lanes(vr: tuple, L: int):
+    """``calc_var_ratio_multi`` over ``L`` lanes: those of the PheWAS fit
+    whose arguments ``vr`` holds, repeated in turn; its rows."""
+    from saigegds_tpu_torch.models import fitnull
+    args, kw = vr
+    grm, codes, fit0s, glmms, noks = args[:5]
+    pick = lambda xs: [xs[i % len(xs)] for i in range(L)]
+    return fitnull.calc_var_ratio_multi(grm, codes, pick(fit0s),
+                                        pick(glmms), pick(noks), *args[5:],
+                                        **kw)
+
+
+def peak_of(device, fn) -> tuple:
+    """``fn()`` with the device's peaks reset first: its result, the peak
+    allocated beyond what was allocated before, the peak reserved, the
+    free bytes at entry and the seconds."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(device)[0]
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, torch.cuda.max_memory_allocated(device) - base,
+            torch.cuda.max_memory_reserved(device), free,
+            time.perf_counter() - t0)
+
+
+def lane_bytes_on_card(op, K: int, device, vr: tuple,
+                       lanes=(2, 4, 6)) -> dict:
+    """The device bytes a lane adds, measured on ``op`` (the PheWAS fit's
+    operator at full width) for both fitters and the variance-ratio pass:
+    the peak allocated at each count of ``lanes`` over a fit that stops
+    after its first AI-REML stage (``maxiter=0``, three PCG iterations a
+    solve, two IRLS steps), or over the PheWAS fit's variance-ratio pass
+    (``vr``, its arguments; its lanes repeated in turn); the slope
+    between each two beside the group rule's reckoning of the same slope,
+    ``fit_device._lane_bytes`` of the widest stacked solve plus the change
+    in the product's slice padding (``kernel_cols``: 8 B a padded column
+    at the product's peak, which the rule reserves whole).  One lane is
+    not measured: its stacked right-hand sides are a view, not a copy."""
+    import torch
+    from saigegds_tpu_torch.models import fit_device as fd, fitnull
+    from saigegds_tpu_torch.ops.packed_grm import N_SLICES, kernel_cols
+    n = op.n_samples
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    f64 = dict(dtype=torch.float64, device=device)
+    X = torch.cat([torch.ones(n, 1, **f64),
+                   torch.randn(n, K - 1, generator=gen, **f64)], dim=1)
+    U = torch.randint(0, 2, (n, 60), generator=gen, device=device).to(
+        torch.float64) * 2 - 1
+    cfg = vr[0][5]
+    out = {}
+    for trait, cols in (("binary", 1 + max(K, 30)),
+                        ("quantitative", 1 + K + 30),
+                        ("variance ratio", fitnull._var_ratio_cols(cfg, K))):
+        peaks = {}
+        for L in lanes:
+            tau = torch.tensor([[1.0, 0.5]] * L, **f64)
+            if trait == "binary":
+                Y = (torch.rand(L, n, generator=gen, **f64) < 0.3).double()
+                eta = torch.zeros(L, n, **f64)
+                run = lambda: fd.fit_glmm_binary_device_multi(
+                    op, Y, X, tau, eta, U, 0.02, 1e-5, maxiter=0,
+                    maxiter_pcg=3, maxiter_coef=2)
+            elif trait == "quantitative":
+                Y = torch.randn(L, n, generator=gen, **f64)
+                run = lambda: fd.fit_glmm_quant_device_multi(
+                    op, Y, X, tau, U, 0.02, 1e-5, maxiter=0, maxiter_pcg=3)
+            else:
+                run = lambda: var_ratio_lanes(vr, L)
+            got, peaks[L], *_ = peak_of(device, run)
+            del got
+        pad = lambda L: kernel_cols(L * cols) - N_SLICES * L * cols
+        out[trait] = dict(cols=cols, peaks=peaks, slopes=[dict(
+            lanes=(lo, hi), measured=(peaks[hi] - peaks[lo]) // (hi - lo),
+            reckoned=fd._lane_bytes(n, K, cols)
+            + n * (pad(hi) - pad(lo)) * 8 // (hi - lo))
+            for lo, hi in zip(lanes, lanes[1:])])
+    return out
+
+
+def edge_groups_on_card(op, K: int, device, vr: tuple) -> dict:
+    """The largest group the rule allows now over ``op`` (the PheWAS fit's
+    operator at full width), run as one group with the lanes' phenotypes
+    and starts on the host, as the PheWAS fit keeps them: the binary
+    fitter (random phenotypes at 30% cases) and the quantitative one (one
+    random phenotype in every lane) through their first outer iteration
+    with real solves, and the variance-ratio pass (``vr``: the PheWAS
+    fit's arguments, its lanes repeated in turn) whole; each with its
+    peak allocated and reserved beside the free memory at entry.  The
+    lanes are counted from the free memory less what a fitter allocates
+    before its rule reads it (the probe pool's products)."""
+    import torch
+    from saigegds_tpu_torch.models import fit_device as fd, fitnull
+    n, nrun, pool = op.n_samples, 30, 60
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    f64 = dict(dtype=torch.float64, device=device)
+    X = torch.cat([torch.ones(n, 1, **f64),
+                   torch.randn(n, K - 1, generator=gen, **f64)], dim=1)
+    U = torch.randint(0, 2, (n, pool), generator=gen, device=device).to(
+        torch.float64) * 2 - 1
+    host = torch.Generator().manual_seed(SEED + 13)
+    cfg = vr[0][5]
+    out = {}
+    for what, cols in (("binary", 1 + max(K, nrun)),
+                       ("quantitative", 1 + K + nrun),
+                       ("variance ratio", fitnull._var_ratio_cols(cfg, K))):
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(device)[0]
+        if what != "variance ratio":
+            free -= 8 * n * pool
+        L = fd._group_budget(free, n) // fd._lane_bytes(n, K, cols)
+        tau = torch.tensor([[1.0, 0.5]] * L, dtype=torch.float64)
+        if what == "binary":
+            Y = (torch.rand(L, n, generator=host, dtype=torch.float64)
+                 < 0.3).double()
+            eta = torch.full((L, n), float(np.log(0.3 / 0.7)),
+                             dtype=torch.float64)
+            run = lambda: fd._binary_multi(op, Y, X, tau, eta, U, 0.02,
+                                           1e-5, maxiter=1)
+        elif what == "quantitative":
+            Y = torch.randn(n, generator=host,
+                            dtype=torch.float64).expand(L, n)
+            run = lambda: fd._quant_multi(op, Y, X, tau, U, 0.02, 1e-5,
+                                          maxiter=1)
+        else:
+            run = lambda: var_ratio_lanes(vr, L)
+        got, alloc, reserved, free_in, secs = peak_of(device, run)
+        if what == "variance ratio":
+            groups = list(vr[0][0].var_ratio_groups)
+            good = all(np.isfinite(r["ratio"]).all() for r in got)
+        else:
+            groups = list(got.lane_groups)
+            good = bool(torch.isfinite(got.tau).all())
+        if groups != [L]:
+            raise AssertionError(f"the {what} edge group of {L} lanes ran "
+                                 f"in groups {groups}")
+        if not good:
+            raise AssertionError(f"the {what} edge group's results are not "
+                                 f"finite")
+        out[what] = dict(lanes=int(L), free=free_in, allocated=alloc,
+                         reserved=reserved, seconds=secs,
+                         planned=int(L) * fd._lane_bytes(n, K, cols))
+        del got
+    return out
+
+
+def force_groups(most: int):
+    """Replace the group rule by groups of at most ``most`` lanes; returns
+    the function that puts it back."""
+    from saigegds_tpu_torch.models import fit_device as fd
+    real = fd._lane_groups
+    fd._lane_groups = lambda P, *a, **k: fd._balanced(P, most)
+
+    def restore():
+        fd._lane_groups = real
+    return restore
+
+
+def groups_on_card(gds_s: str, data_s: dict) -> float:
+    """The small fit's PheWAS fit (y and the yb phenotypes) on the card with
+    the groups forced to 1 and 2 lanes against the rule's one group:
+    within RTOL_GROUP, the same iterations, markers and flags."""
+    from saigegds_tpu_torch import NullModelConfig, fit_null_glmm_multi
+    from saigegds_tpu_torch.models import fit_device as fd
+    formulas = [f"{r} ~ x1 + x2 + x3"
+                for r in ["y"] + [f"yb{pct}" for pct in PHEWAS_CASES]]
+    runs = {}
+    for most in (0, 1, 2):
+        restore = force_groups(most) if most else (lambda: None)
+        inst = {}
+        try:
+            runs[most] = (fit_null_glmm_multi(formulas, data_s, gds_s,
+                                              NullModelConfig(),
+                                              instrument=inst,
+                                              device="cuda"), inst)
+        finally:
+            restore()
+    one, inst1 = runs[0]
+    if inst1["lane_groups"] != [len(formulas)]:
+        raise AssertionError(f"the small PheWAS fit ran in groups "
+                             f"{inst1['lane_groups']}")
+    worst = 0.0
+    for most in (1, 2):
+        got, inst = runs[most]
+        want = [g.stop - g.start
+                for g in fd._balanced(len(formulas), most)]
+        if inst["lane_groups"] != want or inst["var_ratio_groups"] != want:
+            raise AssertionError(f"groups of {most}: {inst['lane_groups']}, "
+                                 f"{inst['var_ratio_groups']}")
+        if inst["outer_iterations"] != inst1["outer_iterations"]:
+            raise AssertionError(f"groups of {most}: outer iterations "
+                                 f"{inst['outer_iterations']} against "
+                                 f"{inst1['outer_iterations']}")
+        for a, b in zip(got, one):
+            if a.converged != b.converged or not np.array_equal(
+                    a.var_ratio["id"], b.var_ratio["id"]):
+                raise AssertionError(f"groups of {most}: converged or "
+                                     f"markers differ")
+            worst = max([worst] + [max_rel(getattr(a, k), getattr(b, k), k)
+                                   for k in ("tau", "coefficients",
+                                             "fitted_values")]
+                        + [max_rel(a.var_ratio["ratio"],
+                                   b.var_ratio["ratio"], "ratio")])
+    if worst > RTOL_GROUP:
+        raise AssertionError(f"grouped against one group on the card: "
+                             f"{worst:.3e} > {RTOL_GROUP}")
+    log(f"the small PheWAS fit ({FIT_SMALL[0]} x {FIT_SMALL[1]}, "
+        f"{len(formulas)} lanes) on the card in groups of 1 and 2 lanes "
+        f"(AI-REML and variance ratios) against one group: max relative "
+        f"error {worst:.3e} (limit {RTOL_GROUP}), outer iterations "
+        f"{inst1['outer_iterations']} in all three")
+    return worst
+
+
+def one_lane_fits(codes_s: np.ndarray, data_s: dict) -> float:
+    """The public one-lane fitters ``fit_glmm_binary_device`` (``y``) and
+    ``fit_glmm_quant_device`` (``yq``, standardized) over the small fit's
+    2-bit operator on the card and on the CPU: within RTOL_FIT, the same
+    iterations and flags."""
+    import torch
+    from saigegds_tpu_torch import (fit_glmm_binary_device,
+                                    fit_glmm_quant_device)
+    from saigegds_tpu_torch.models.glm import glm_binomial
+    from saigegds_tpu_torch.ops.packed_grm import build_packed2_grm
+    n = codes_s.shape[1]
+    X = np.column_stack([np.ones(n)] + [data_s[f"x{i}"]
+                                        for i in range(1, N_COV + 1)])
+    y = data_s["y"]
+    eta = glm_binomial(X, y).linear_predictors
+    yq = (data_s["yq"] - data_s["yq"].mean()) / data_s["yq"].std()
+    U = np.random.default_rng(SEED + 11).choice([-1.0, 1.0], size=(n, 60))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        op = build_packed2_grm(codes_s, device=dev)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+        t0 = time.perf_counter()
+        b = fit_glmm_binary_device(op, t(y), t(X), t([1.0, 0.5]), t(eta),
+                                   t(U), 0.02, 1e-5)
+        q = fit_glmm_quant_device(op, t(yq), t(X), t([0.5, 0.5]), t(U),
+                                  0.02, 1e-5)
+        out[dev] = (b, q, time.perf_counter() - t0)
+    worst = 0.0
+    for k, (g, c) in enumerate(zip(out["cuda"][:2], out["cpu"][:2])):
+        for f in ("iterations", "converged", "trace_capped"):
+            if getattr(g, f).item() != getattr(c, f).item():
+                raise AssertionError(f"one-lane fit {k}: {f} "
+                                     f"{getattr(g, f).item()} on the card, "
+                                     f"{getattr(c, f).item()} on the CPU")
+        if g.tau.shape != (2,) or g.mu.shape != (n,):
+            raise AssertionError(f"one-lane fit {k} has a lane axis")
+        worst = max([worst] + [max_rel(getattr(g, f).cpu().numpy(),
+                                       getattr(c, f).numpy(), f)
+                               for f in ("tau", "coefficients")])
+    if worst > RTOL_FIT:
+        raise AssertionError(f"one-lane fitters card vs CPU: {worst:.3e} > "
+                             f"{RTOL_FIT}")
+    b, q, tg = out["cuda"]
+    log(f"fit_glmm_binary_device and fit_glmm_quant_device "
+        f"({FIT_SMALL[0]} x {FIT_SMALL[1]}): card vs CPU max relative error "
+        f"{worst:.3e} (limit {RTOL_FIT}), iterations {int(b.iterations)} "
+        f"and {int(q.iterations)} on both, tau {b.tau.tolist()} and "
+        f"{q.tau.tolist()}; {tg:.1f} s on the card, {out['cpu'][2]:.1f} s "
+        f"on the CPU")
+    return worst
+
+
 def phewas_fit(gds: str, data: dict, one_fit: dict, gds_s: str,
-               data_s: dict, device):
-    """Phase 16: the PheWAS fit at full width (P binary lanes over one
-    ingest of phase 4's GDS), then the quantitative PheWAS fit at the small
-    fit's size on the card and on the CPU."""
+               data_s: dict, codes_s: np.ndarray, op4, device):
+    """Phase 16: the PheWAS fit at full width at the least P that the group
+    rule splits into two groups or more on this card (P binary lanes over
+    one ingest of phase 4's GDS), the bytes a lane adds measured against
+    the rule's reckoning; then at the small fit's size the groups forced
+    to 1 and 2 lanes on the card, the public one-lane fitters on the card
+    and on the CPU, and the quantitative PheWAS fit on both."""
     import torch
     from saigegds_tpu_torch import NullModelConfig, fit_null_glmm_multi
     from saigegds_tpu_torch.models import fitnull
 
-    resps = ["y"] + [f"yb{pct}" for pct in PHEWAS_CASES]
+    cfg = NullModelConfig()
+    K = N_COV + 1
+    P = phewas_lanes(N_SAMPLES, K, cfg.nrun, op_bytes(op4), device)
+    base = ["y"] + [f"yb{pct}" for pct in PHEWAS_CASES]
+    if P - len(base) > PHEWAS_MORE:
+        raise AssertionError(f"the group rule needs P = {P} lanes for two "
+                             f"groups here, past the {len(base)} + "
+                             f"{PHEWAS_MORE} phenotypes made")
+    resps = base + [f"yp{k}" for k in range(max(P - len(base), 0))]
     formulas = [f"{r} ~ {FORMULA.split('~')[1].strip()}" for r in resps]
-    ingests = [0]
-    real = fitnull._prepare_fit
+    ingests, vrs = [], []
+    real, real_vr = fitnull._prepare_fit, fitnull.calc_var_ratio_multi
 
     def counted(*a, **k):
-        ingests[0] += 1
-        return real(*a, **k)
+        out = real(*a, **k)
+        ingests.append(out["grm"])
+        return out
+
+    def kept_vr(*a, **k):
+        vrs.append((a, k))
+        return real_vr(*a, **k)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     inst = {}
     fitnull._prepare_fit = counted
+    fitnull.calc_var_ratio_multi = kept_vr
     t0 = time.perf_counter()
     try:
-        models = fit_null_glmm_multi(formulas, data, gds, NullModelConfig(),
+        models = fit_null_glmm_multi(formulas, data, gds, cfg,
                                      instrument=inst, device=device)
     finally:
         fitnull._prepare_fit = real
+        fitnull.calc_var_ratio_multi = real_vr
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    total = torch.cuda.mem_get_info(device)[1]
     counts = expect_launches("the PheWAS fit", {
         "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"]})
-    if ingests[0] != 1:
-        raise AssertionError(f"the PheWAS fit ingested {ingests[0]} times")
+    if len(ingests) != 1:
+        raise AssertionError(f"the PheWAS fit ingested {len(ingests)} times")
+    held_widths("the PheWAS fit", inst["product_widths"])
+    if len(inst["lane_groups"]) < 2:
+        raise AssertionError(f"the PheWAS fit of {P} lanes ran in one group "
+                             f"({inst['lane_groups']})")
     for m in models:
         check_fit(m)
-    P = len(models)
-    log(f"PheWAS fit on the card: {P} binary phenotypes ({', '.join(resps)}; "
-        f"case fractions "
-        f"{', '.join(f'{data[r].mean():.3f}' for r in resps)}) over one "
-        f"ingest; tau_G {[round(float(m.tau[1]), 6) for m in models]}, "
-        f"outer iterations {inst['outer_iterations']}, "
-        f"{inst['pcg_iterations']} PCG iterations, {inst['matvecs']} GRM "
-        f"products (by C: {json.dumps(inst['product_widths'])}), B1 "
-        f"launches {counts['plane_dot_fwd']}, B2 {counts['plane_dot_t']}; "
+    log(f"PheWAS fit on the card: P = {P} binary phenotypes (the least P "
+        f"the group rule splits on this card, reckoned beforehand; case "
+        f"fractions {', '.join(f'{data[r].mean():.3f}' for r in resps)}) "
+        f"over one ingest, AI-REML in lane groups {inst['lane_groups']}, "
+        f"variance ratios in {inst['var_ratio_groups']}; tau_G "
+        f"{[round(float(m.tau[1]), 6) for m in models]}, outer iterations "
+        f"{inst['outer_iterations']}, {inst['pcg_iterations']} PCG "
+        f"iterations, {inst['matvecs']} GRM products (by C: "
+        f"{json.dumps(inst['product_widths'])}), B1 launches "
+        f"{counts['plane_dot_fwd']}, B2 {counts['plane_dot_t']}; "
         f"{wall:.1f} s wall = ingest {inst['ingest_s']:.1f} + AI-REML "
         f"{inst['aireml_s']:.1f} + variance ratio {inst['var_ratio_s']:.1f} s "
         f"({[len(m.var_ratio['ratio']) for m in models]} markers); peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"device memory {peak / 2**30:.2f} GiB allocated, "
+        f"{reserved / 2**30:.2f} GiB reserved, of the card's "
+        f"{total / 2**30:.2f} GiB")
     log(f"  beside phase 4's one fit of y: {one_fit['matvecs']} products "
         f"(by C: {json.dumps(one_fit['product_widths'])}), "
         f"{one_fit['pcg_iterations']} PCG iterations, "
         f"{one_fit['wall_s']:.1f} s wall; {P} fits one by one would take "
         f"about {P * one_fit['matvecs']} products and {P} ingests (phase "
         f"4's counts times {P}; the other {P - 1} single fits are not run)")
+
+    # the bytes a lane adds, on the fit's operator, against the reckoning
+    t0 = time.perf_counter()
+    ingests_op = ingests.pop()
+    vr = vrs.pop()
+    lane = lane_bytes_on_card(ingests_op, K, device, vr)
+    log(f"bytes a lane adds at N = {N_SAMPLES} (K = {K}), the group rule's "
+        f"reckoning against the slope of the card's max_memory_allocated "
+        f"(peaks over fits stopped after their first stage, and over the "
+        f"PheWAS fit's variance-ratio pass): " + "; ".join(
+            f"{t} ({v['cols']} columns a lane; peaks by lanes "
+            f"{json.dumps(v['peaks'])} B): " + ", ".join(
+                f"{a['lanes'][0]} to {a['lanes'][1]} lanes reckoned "
+                f"{a['reckoned']} B, measured {a['measured']} B "
+                f"({a['measured'] / a['reckoned']:.4f} of it)"
+                for a in v["slopes"]) for t, v in lane.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    for t, v in lane.items():
+        for a in v["slopes"]:
+            if a["measured"] > a["reckoned"]:
+                raise AssertionError(
+                    f"the group rule's reckoning of a {t} lane "
+                    f"({a['reckoned']} B) is below the card's slope from "
+                    f"{a['lanes'][0]} to {a['lanes'][1]} lanes "
+                    f"({a['measured']} B)")
+
+    # the largest group the rule allows, on the same operator
+    edge = edge_groups_on_card(ingests_op, K, device, vr)
+    del ingests_op, vr
+    log("the largest group the rule allows now at full width, in one "
+        "group (the fitters through their first outer iteration, the "
+        "variance-ratio pass whole): " + "; ".join(
+            f"{what} {e['lanes']} lanes ({e['planned']} B planned for them) "
+            f"in {e['seconds']:.1f} s, peak {e['allocated'] / 2**30:.2f} GiB "
+            f"allocated beyond its inputs, {e['reserved'] / 2**30:.2f} GiB "
+            f"reserved in all, of {e['free'] / 2**30:.2f} GiB free at entry"
+            for what, e in edge.items()))
+
+    # at the small fit's size: groups forced on the card, the one-lane
+    # fitters on the card and the CPU
+    groups_on_card(gds_s, data_s)
+    one_lane_fits(codes_s, data_s)
 
     # the quantitative PheWAS fit, small, on the card and on the CPU
     quant = ["yq ~ x1 + x2 + x3", "yq2 ~ x1 + x2 + x3"]
@@ -2009,7 +2451,7 @@ def phewas_fit(gds: str, data: dict, one_fit: dict, gds_s: str,
         f"(limit {RTOL_FIT}), outer iterations {ic['outer_iterations']} and "
         f"{ic['pcg_iterations']} PCG iterations on both; {tg:.1f} s on the "
         f"card, {tc:.1f} s on the CPU")
-    return models, dict(inst, wall_s=wall)
+    return models, dict(inst, wall_s=wall, P=P, lane=lane)
 
 
 def phewas_scan(gds7: str, models: list, model_q, scan7: dict,
@@ -2058,9 +2500,12 @@ def phewas_scan(gds7: str, models: list, model_q, scan7: dict,
     mask[:BLOCK] = True
     t0 = time.perf_counter()
     cpu = assoc_spa_multi(gds7, lanes[:1], ScanConfig(block_size=BLOCK),
-                          variant_mask=mask, device="cpu")[0]
+                          variant_mask=mask & (np.arange(N_VARIANTS)
+                                               < CPU_ROWS),
+                          device="cpu")[0]
     worst = compare_tables(tabs[0], cpu)
-    log(f"lane 0's first block on the CPU: {len(cpu['pval'])} rows within "
+    log(f"lane 0's first {CPU_ROWS} variants on the CPU: "
+        f"{len(cpu['pval'])} rows within "
         f"{worst:.3e} of the card's (limit {RTOL}), "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -2103,8 +2548,10 @@ def gxg_phase(gds_fit: str, gds7: str, tab7: dict, data: dict, gds_s: str,
               data_s: dict):
     """Phase 18: GxG at full width with approximate tau (phase 4's GDS as
     the GRM, cut to its first GXG_M variants, and phase 7's GDS as the
-    tested SNPs), batched against serial; then full per-pair refits at the
-    small fit's size on the card and on the CPU."""
+    tested SNPs), batched, and its first pair from the default start;
+    then at the small fit's size the batched
+    approximate-tau path against the serial one with the GLM screen, and
+    full per-pair refits on the card and on the CPU."""
     import torch
     from saigegds_tpu_torch import NullModelConfig, gxg_spa
 
@@ -2115,77 +2562,83 @@ def gxg_phase(gds_fit: str, gds7: str, tab7: dict, data: dict, gds_s: str,
     pairs = {"snp1": ids[0::2], "snp2": ids[1::2]}
     panel = np.arange(1, GXG_M + 1)
     formula = FORMULA
-    out = {}
-    for name, kw in (("batched", dict(pair_batch=GXG_BATCH)),
-                     ("serial", dict(glm_threshold=1.0))):
-        sel = pairs if name == "batched" else \
-            {k: v[:GXG_SERIAL] for k, v in pairs.items()}
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        inst = {}
-        t0 = time.perf_counter()
-        tab = gxg_spa(formula, data, gds_fit, sel, gds_assoc=gds7,
-                      config=NullModelConfig(tau_init=GXG_TAU_INIT),
-                      use_approx_tau=True, variant_id=panel,
-                      instrument=inst, device="cuda", **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = expect_launches(f"GxG, {name}", {
-            "plane_dot_fwd": inst["matvecs"],
-            "plane_dot_t": inst["matvecs"]})
-        p = tab["pval"]
-        if not (np.isfinite(p).all() and ((p >= 0) & (p <= 1)).all()):
-            raise AssertionError(f"GxG {name}: p-values outside [0, 1]")
-        if not tab["tau_G"][0] > 0:
-            raise AssertionError(f"GxG {name}: approximate tau_G "
-                                 f"{tab['tau_G'][0]} is not positive")
-        n = len(p)
-        log(f"GxG on the card, {name} ({n} pairs, GRM panel {GXG_M} x "
-            f"{N_SAMPLES}, tested SNPs from phase 7's GDS, approximate "
-            f"tau {tab['tau_G'][0]:.6f}{', GLM screen at 1.0' if 'glm_threshold' in kw else ''}): "
-            f"{wall:.1f} s wall = GRM build {inst['ingest_s']:.1f} + base "
-            f"fit {inst['base_fit_s']:.1f} + pairs {inst['pairs_s']:.1f} s, "
-            f"{inst['pairs_s'] / n:.3f} s per pair; {inst['matvecs']} GRM "
-            f"products, B1 {counts['plane_dot_fwd']}, B2 "
-            f"{counts['plane_dot_t']}, {inst['pcg_iterations']} PCG "
-            f"iterations; min p {p.min():.3e}; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        out[name] = (tab, counts)
-    batched, serial = out["batched"][0], out["serial"][0]
-    if not np.isfinite(serial["p.glm"]).all():
-        raise AssertionError("the GLM screen gave no p-value")
-    worst = max(max_rel(batched[c][:GXG_SERIAL], serial[c], c)
-                for c in ("beta", "SE", "pval", "p.norm", "tau_G"))
-    if worst > RTOL:
-        raise AssertionError(f"GxG batched vs serial: {worst:.3e} > {RTOL}")
-    log(f"GxG pair_batch={GXG_BATCH} against the serial path (with the GLM "
-        f"screen) on the first {GXG_SERIAL} pairs: max relative error "
-        f"{worst:.3e} (limit {RTOL})")
-
-    # the default start, as users run it, on the first pair
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     inst = {}
     t0 = time.perf_counter()
-    tab = gxg_spa(formula, data, gds_fit, {k: v[:1] for k, v in pairs.items()},
-                  gds_assoc=gds7, use_approx_tau=True, variant_id=panel,
-                  instrument=inst, device="cuda")
+    tab = gxg_spa(formula, data, gds_fit, pairs, gds_assoc=gds7,
+                  config=NullModelConfig(tau_init=GXG_TAU_INIT),
+                  use_approx_tau=True, variant_id=panel, instrument=inst,
+                  device="cuda", pair_batch=GXG_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = expect_launches("GxG, batched", {
+        "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"]})
+    p = tab["pval"]
+    if not (np.isfinite(p).all() and ((p >= 0) & (p <= 1)).all()):
+        raise AssertionError("GxG batched: p-values outside [0, 1]")
+    if not tab["tau_G"][0] > 0:
+        raise AssertionError(f"GxG batched: approximate tau_G "
+                             f"{tab['tau_G'][0]} is not positive")
+    n = len(p)
+    log(f"GxG on the card, batched ({n} pairs, GRM panel {GXG_M} x "
+        f"{N_SAMPLES}, tested SNPs from phase 7's GDS, approximate tau "
+        f"{tab['tau_G'][0]:.6f}): {wall:.1f} s wall = GRM build "
+        f"{inst['ingest_s']:.1f} + base fit {inst['base_fit_s']:.1f} + pairs "
+        f"{inst['pairs_s']:.1f} s, {inst['pairs_s'] / n:.3f} s per pair; "
+        f"{inst['matvecs']} GRM products, B1 {counts['plane_dot_fwd']}, B2 "
+        f"{counts['plane_dot_t']}, {inst['pcg_iterations']} PCG iterations; "
+        f"min p {p.min():.3e}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    out = {"batched": (tab, counts)}
+
+    # the default start, as users run it, on the first pair: the
+    # approximate tau_G ends at 0 at this panel shape
+    reset_launches()
+    inst = {}
+    t0 = time.perf_counter()
+    first = gxg_spa(formula, data, gds_fit,
+                    {k: v[:1] for k, v in pairs.items()}, gds_assoc=gds7,
+                    use_approx_tau=True, variant_id=panel, instrument=inst,
+                    device="cuda")
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     expect_launches("GxG, default start", {"plane_dot_fwd": inst["matvecs"],
                                            "plane_dot_t": inst["matvecs"]})
-    p = tab["pval"]
+    p = first["pval"]
     if not (np.isfinite(p).all() and ((p >= 0) & (p <= 1)).all()):
         raise AssertionError("GxG default start: p-value outside [0, 1]")
     log(f"GxG from the default start (1, 0.5), one pair: approximate tau "
-        f"{tab['tau_G'][0]:.6f} (0 in both packages at N = 4,000, "
+        f"{first['tau_G'][0]:.6f} (0 in both packages at N = 4,000, "
         f"tests/test_torch_gxg_start.py), p {p[0]:.6e} against "
-        f"{batched['pval'][0]:.6e} from tau_G = {GXG_TAU_INIT[1]}; "
+        f"{tab['pval'][0]:.6e} from tau_G = {GXG_TAU_INIT[1]}; "
         f"{wall:.1f} s wall = GRM build {inst['ingest_s']:.1f} + base fit "
         f"{inst['base_fit_s']:.1f} + pair {inst['pairs_s']:.1f} s, "
         f"{inst['matvecs']} GRM products")
 
-    # full per-pair refits at the small size, card against CPU
+    # the batched approximate-tau path against the serial one (with the
+    # GLM screen), at the small size on the card
     small = {"snp1": [a for a, _ in GXG_SMALL_PAIRS],
              "snp2": [b for _, b in GXG_SMALL_PAIRS]}
+    approx = {}
+    for name, kw in (("batched", dict(pair_batch=len(GXG_SMALL_PAIRS))),
+                     ("serial", dict(glm_threshold=1.0))):
+        approx[name] = gxg_spa(formula, data_s, gds_s, small,
+                               config=NullModelConfig(tau_init=GXG_TAU_INIT),
+                               use_approx_tau=True, device="cuda", **kw)
+    batched, serial = approx["batched"], approx["serial"]
+    if not np.isfinite(serial["p.glm"]).all():
+        raise AssertionError("the GLM screen gave no p-value")
+    worst = max(max_rel(batched[c], serial[c], c)
+                for c in ("beta", "SE", "pval", "p.norm", "tau_G"))
+    if worst > RTOL:
+        raise AssertionError(f"GxG batched vs serial: {worst:.3e} > {RTOL}")
+    log(f"GxG approximate tau, pair_batch={len(GXG_SMALL_PAIRS)} against the "
+        f"serial path (with the GLM screen), {FIT_SMALL[0]} x {FIT_SMALL[1]} "
+        f"on the card: max relative error {worst:.3e} (limit {RTOL}), "
+        f"tau_G {batched['tau_G'][0]:.6f}")
+
+    # full per-pair refits at the small size, card against CPU
     res = {}
     for dev in ("cuda", "cpu"):
         for pb in (0, len(GXG_SMALL_PAIRS)):
@@ -2604,9 +3057,10 @@ def dist_child(argv: list) -> int:
 
 def cli_phase(work: str, gds_s: str, data_s: dict, card: str):
     """Phase 21: ``python -m saigegds_tpu_torch`` with ``--device cuda``
-    in subprocesses: fit (--pheno-cols), scan (two --model), gxg, merge
-    and info on the small fit's data, each output against the API's on
-    the card."""
+    in subprocesses, those that need no other's output at once: fit
+    (--pheno-cols), scan (two --model, the API's models), gxg, merge and
+    info on the small fit's data, each output against the API's on the
+    card."""
     import csv
     from saigegds_tpu_torch import (NullModel, fit_null_glmm_multi,
                                     gxg_spa, load_pval, assoc_spa_multi)
@@ -2624,78 +3078,105 @@ def cli_phase(work: str, gds_s: str, data_s: dict, card: str):
         f.write("a\tb\n" + "".join(f"{a}\t{b}\n"
                                    for a, b in GXG_SMALL_PAIRS))
     env = dict(os.environ, PYTHONPATH=ROOT)
+    procs, walls = {}, {}
 
-    def cli(*args):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "saigegds_tpu_torch", *args, "--device",
-             "cuda"], cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=600)
+    def start(name, *args):
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "saigegds_tpu_torch", name, *args,
+             "--device", "cuda"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), time.perf_counter())
+
+    def finish(name):
+        proc, t0 = procs[name]
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"CLI {name} did not end within 600 s") \
+                from None
         if proc.returncode:
-            raise AssertionError(f"CLI {args[0]} failed: "
-                                 f"{proc.stderr[-2000:]}")
-        return proc.stdout, time.perf_counter() - t0
+            raise AssertionError(f"CLI {name} failed: {err[-2000:]}")
+        walls[name] = time.perf_counter() - t0
+        return out
 
-    walls = {}
     models = os.path.join(work, "cli_m_{}.npz")
-    _, walls["fit"] = cli("fit", "--formula", FORMULA, "--pheno-cols",
-                          "y,yb20", "--pheno", pheno, "--gds", gds_s,
-                          "--out", models)
-    api = fit_null_glmm_multi([FORMULA, FORMULA.replace("y ~", "yb20 ~")],
-                              data_s, gds_s, device="cuda")
-    worst_fit = 0.0
-    for i, m in enumerate(api):
-        got = NullModel.load(models.format(i))
-        worst_fit = max([worst_fit] + [
-            max_rel(getattr(got, k), getattr(m, k), k)
-            for k in ("tau", "coefficients")] + [
-            max_rel(got.var_ratio["ratio"], m.var_ratio["ratio"], "ratio")])
-    if worst_fit > RTOL_FIT:
-        raise AssertionError(f"CLI fit vs API: {worst_fit:.3e} > {RTOL_FIT}")
-
+    api_models = os.path.join(work, "api_m_{}.npz")
     shards = os.path.join(work, "cli.part{}.tsv")
-    _, walls["scan"] = cli("scan", "--gds", gds_s, "--model",
-                           models.format(0), "--model", models.format(1),
-                           "--out", shards)
-    want = assoc_spa_multi(gds_s, [models.format(0), models.format(1)],
-                           device="cuda")
-    worst_scan = 0.0
-    for i in range(2):
-        got = load_pval(shards.format(i))
-        worst_scan = max([worst_scan] + [max_rel(got[c], want[i][c], c)
-                                         for c in ("pval", "p.norm", "beta",
-                                                   "SE")])
-    if worst_scan > RTOL:
-        raise AssertionError(f"CLI scan vs API: {worst_scan:.3e} > {RTOL}")
-
     gx = os.path.join(work, "cli_gxg.tsv")
-    _, walls["gxg"] = cli("gxg", "--formula", FORMULA, "--pheno", pheno,
-                          "--gds", gds_s, "--pairs", pairs, "--out", gx,
-                          "--use-approx-tau", "--pair-batch", "4")
-    want_g = gxg_spa(FORMULA, data_s, gds_s,
-                     {"a": [a for a, _ in GXG_SMALL_PAIRS],
-                      "b": [b for _, b in GXG_SMALL_PAIRS]},
-                     use_approx_tau=True, pair_batch=4, device="cuda")
-    got_g = load_pval(gx)
-    worst_gxg = max(max_rel(got_g[c], want_g[c], c)
-                    for c in ("beta", "SE", "pval", "p.norm", "tau_G"))
-    if worst_gxg > RTOL_FIT:
-        raise AssertionError(f"CLI gxg vs API: {worst_gxg:.3e} > "
-                             f"{RTOL_FIT}")
-
     merged = os.path.join(work, "cli_merged.tsv")
-    _, walls["merge"] = cli("merge", "--prefix", os.path.join(work, "cli"),
-                            "--out", merged)
-    got_m = load_pval(merged)
-    want_m = load_pval([shards.format(0), shards.format(1)])
-    for c in want_m:
-        if not np.array_equal(np.asarray(got_m[c]).astype(str),
-                              np.asarray(want_m[c]).astype(str)):
-            raise AssertionError(f"CLI merge: column {c} differs")
-    info, walls["info"] = cli("info")
-    if card.split(",")[0].strip() not in info:
-        raise AssertionError(f"CLI info does not name the card: {info!r}")
-    log(f"CLI (--device cuda, one process each): fit --pheno-cols within "
+    try:
+        # the commands that need no other's output start at once; the
+        # scan reads the API's models, the merge the scan's shards
+        start("fit", "--formula", FORMULA, "--pheno-cols", "y,yb20",
+              "--pheno", pheno, "--gds", gds_s, "--out", models)
+        start("gxg", "--formula", FORMULA, "--pheno", pheno, "--gds", gds_s,
+              "--pairs", pairs, "--out", gx, "--use-approx-tau",
+              "--pair-batch", "4")
+        start("info")
+        api = fit_null_glmm_multi([FORMULA, FORMULA.replace("y ~", "yb20 ~")],
+                                  data_s, gds_s, device="cuda")
+        for i, m in enumerate(api):
+            m.save(api_models.format(i))
+        start("scan", "--gds", gds_s, "--model", api_models.format(0),
+              "--model", api_models.format(1), "--out", shards)
+
+        finish("fit")
+        worst_fit = 0.0
+        for i, m in enumerate(api):
+            got = NullModel.load(models.format(i))
+            worst_fit = max([worst_fit] + [
+                max_rel(getattr(got, k), getattr(m, k), k)
+                for k in ("tau", "coefficients")] + [
+                max_rel(got.var_ratio["ratio"], m.var_ratio["ratio"],
+                        "ratio")])
+        if worst_fit > RTOL_FIT:
+            raise AssertionError(f"CLI fit vs API: {worst_fit:.3e} > "
+                                 f"{RTOL_FIT}")
+
+        want = assoc_spa_multi(gds_s, [api_models.format(0),
+                                       api_models.format(1)], device="cuda")
+        finish("scan")
+        worst_scan = 0.0
+        for i in range(2):
+            got = load_pval(shards.format(i))
+            worst_scan = max([worst_scan] + [
+                max_rel(got[c], want[i][c], c)
+                for c in ("pval", "p.norm", "beta", "SE")])
+        if worst_scan > RTOL:
+            raise AssertionError(f"CLI scan vs API: {worst_scan:.3e} > "
+                                 f"{RTOL}")
+        start("merge", "--prefix", os.path.join(work, "cli"), "--out",
+              merged)
+
+        want_g = gxg_spa(FORMULA, data_s, gds_s,
+                         {"a": [a for a, _ in GXG_SMALL_PAIRS],
+                          "b": [b for _, b in GXG_SMALL_PAIRS]},
+                         use_approx_tau=True, pair_batch=4, device="cuda")
+        finish("gxg")
+        got_g = load_pval(gx)
+        worst_gxg = max(max_rel(got_g[c], want_g[c], c)
+                        for c in ("beta", "SE", "pval", "p.norm", "tau_G"))
+        if worst_gxg > RTOL_FIT:
+            raise AssertionError(f"CLI gxg vs API: {worst_gxg:.3e} > "
+                                 f"{RTOL_FIT}")
+
+        finish("merge")
+        got_m = load_pval(merged)
+        want_m = load_pval([shards.format(0), shards.format(1)])
+        for c in want_m:
+            if not np.array_equal(np.asarray(got_m[c]).astype(str),
+                                  np.asarray(want_m[c]).astype(str)):
+                raise AssertionError(f"CLI merge: column {c} differs")
+        info = finish("info")
+        if card.split(",")[0].strip() not in info:
+            raise AssertionError(f"CLI info does not name the card: "
+                                 f"{info!r}")
+    finally:
+        for proc, _t0 in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    log(f"CLI (--device cuda, one process each, up to four at once): fit "
+        f"--pheno-cols within "
         f"{worst_fit:.3e} of the API's models (limit {RTOL_FIT}), scan with "
         f"two --model within {worst_scan:.3e} (limit {RTOL}), gxg within "
         f"{worst_gxg:.3e} (limit {RTOL_FIT}), merge equal, info "
@@ -2758,7 +3239,8 @@ def main() -> int:
         # 4. the fit at full width
         launch_widths.mark('4. the fit at full width')
         t0 = time.perf_counter()
-        codes, data = make_fit_data(N_SAMPLES, M_FIT, device, SEED)
+        codes, data = make_fit_data(N_SAMPLES, M_FIT, device, SEED,
+                                    more_phenotypes=PHEWAS_MORE)
         gds_fit = os.path.join(work, "fit.gds")
         write_seqarray_gds(gds_fit, codes, compress="ZIP_ra")
         log(f"fit setup: {M_FIT} GRM variants x {N_SAMPLES} samples, "
@@ -2806,11 +3288,7 @@ def main() -> int:
         log(f"{card}: B1 and B2 by C over the fit's store (phase 3, M = "
             f"{M_FIT}, N = {N_SAMPLES}) beside the fit's products at each C: "
             f"{json.dumps(by_c)}")
-        missing = set(widths) - set(GRM_WIDTHS)
-        if missing:
-            raise AssertionError(f"the fit ran B1 and B2 at C = "
-                                 f"{sorted(missing)}, which phase 3 does "
-                                 "not hold against the plain versions")
+        held_widths("the fit", widths)
 
         profile_product(device, gen)
         trace_scan_block(model, device, gen)
@@ -2845,6 +3323,7 @@ def main() -> int:
         fitq_launches = expect_launches("the quantitative fit", {
             "plane_dot_fwd": inst_q["matvecs"],
             "plane_dot_t": inst_q["matvecs"]})
+        held_widths("the quantitative fit", inst_q["product_widths"])
         check_fit(model_q)
         log(f"quantitative fit on the card: tau {model_q.tau.tolist()}, "
             f"{inst_q['outer_iterations']} outer iterations, "
@@ -2912,12 +3391,15 @@ def main() -> int:
             f"decode {stages['decode_s'] / n_blocks:.3f} s, sample gather "
             f"{stages['gather_s'] / n_blocks:.3f} s (inside pack_s)")
 
-        # the first block on the CPU
+        # the first block's first CPU_ROWS variants on the CPU
         mask = np.zeros(N_VARIANTS, bool)
         mask[:BLOCK] = True
-        tab_cpu, _, wall_cpu = scan(gds, model, "cpu", variant_mask=mask)
+        tab_cpu, _, wall_cpu = scan(gds, model, "cpu",
+                                    variant_mask=mask & (np.arange(
+                                        N_VARIANTS) < CPU_ROWS))
         worst = compare_tables(tab, tab_cpu)
-        log(f"first block on the CPU: {len(tab_cpu['pval'])} rows agree with "
+        log(f"first block's first {CPU_ROWS} variants on the CPU: "
+            f"{len(tab_cpu['pval'])} rows agree with "
             f"the card's, max relative error {worst:.3e} (limit {RTOL}), "
             f"{wall_cpu:.1f} s")
         # the first block on the card through the int8 route (B4)
@@ -3002,12 +3484,14 @@ def main() -> int:
         launch_widths.mark('16. the PheWAS fit at full width; the small '
                            'quantitative one')
         phewas_models, _ = phewas_fit(gds_fit, data, fit4, gds_s, data_s,
-                                      "cuda")
+                                      codes_s, kept4["grm"], "cuda")
 
         # 17. the PheWAS scan: the lanes and the quantitative model
         launch_widths.mark('17. the PheWAS scan: the lanes and the '
                            'quantitative model')
-        phewas_scan(gds, phewas_models, model_q, scan7, tab8)
+        phewas_scan(gds, phewas_models[:len(PHEWAS_CASES) + 1], model_q,
+                    scan7, tab8)
+        del phewas_models
         del tab8
 
         # 18. GxG

@@ -6,7 +6,10 @@ the JAX package had Pallas kernels.  The JAX package ``saigegds_tpu`` stays
 beside it as the reference; this package imports ``torch`` and never
 ``jax``.  It fits the null GLMM of a binary or a quantitative trait
 (:func:`fit_null_glmm`, resumable with ``checkpoint=``; several
-phenotypes over one resident GRM with :func:`fit_null_glmm_multi`), runs
+phenotypes over one resident GRM with :func:`fit_null_glmm_multi`, in
+groups sized to the card's free memory; the AI-REML fit alone over a GRM
+operator with :func:`fit_glmm_binary_device`, :func:`fit_glmm_quant_device`
+and their several-phenotype forms ``*_multi``), runs
 the association scan (:func:`assoc_spa` over hard calls or imputed
 dosages, :func:`assoc_spa_multi` for several models over one pass of the
 genotypes, :func:`assoc_spa_user` over dosages the caller supplies), the
@@ -24,6 +27,10 @@ every public function that places data takes an explicit ``device``.
 from .config import AggregateConfig, NullModelConfig, ScanConfig
 from .models.nullmodel import NullModel
 from .models.fitnull import fit_null_glmm, fit_null_glmm_multi
+from .models.fit_device import (fit_glmm_binary_device,
+                                fit_glmm_binary_device_multi,
+                                fit_glmm_quant_device,
+                                fit_glmm_quant_device_multi)
 from .assoc.single import assoc_spa, assoc_spa_multi, assoc_spa_user, \
     save_assoc
 from .assoc.aggregate import (VariantUnits, assoc_acat_o, assoc_acat_v,

@@ -145,11 +145,14 @@ def _device_taus(grm: _FitGRM, y, X_list, eta0_list, tau_init, cfg):
     ``models/fit_device.py`` with one design per lane, over the shared
     GRM (the JAX package vmaps its one-lane device fit).  Probes: a pool
     of nrun + 30 columns of R's stream.  Lanes whose designs differ in
-    width (a collinear dosage dropped) run in separate batches."""
-    from ..models.fit_device import fit_glmm_binary_device_multi
+    width (a collinear dosage dropped) run in separate batches; the
+    lanes' phenotypes, designs and starts stay on the host until their
+    group runs."""
+    from ..models.fit_device import _binary_multi
 
     dev = grm.op.device
     t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    host = lambda a: torch.as_tensor(np.asarray(a, np.float64))
     rng = RRandom(cfg.seed)
     n = len(y)
     U = t(np.stack([rng.rademacher(n).astype(np.float64)
@@ -159,11 +162,11 @@ def _device_taus(grm: _FitGRM, y, X_list, eta0_list, tau_init, cfg):
     for k in np.unique(widths):
         lanes = np.flatnonzero(widths == k)
         L = len(lanes)
-        fit = fit_glmm_binary_device_multi(
-            grm.op, t(np.tile(y, (L, 1))),
-            t(np.stack([X_list[i] for i in lanes])),
-            t(np.tile(tau_init, (L, 1))),
-            t(np.stack([eta0_list[i] for i in lanes])), U, cfg.tol,
+        fit = _binary_multi(
+            grm.op, host(np.tile(y, (L, 1))),
+            host(np.stack([X_list[i] for i in lanes])),
+            host(np.tile(tau_init, (L, 1))),
+            host(np.stack([eta0_list[i] for i in lanes])), U, cfg.tol,
             cfg.tol_pcg, maxiter=cfg.maxiter, maxiter_pcg=cfg.maxiter_pcg,
             nrun=cfg.nrun, trace_cv_cutoff=cfg.trace_cv_cutoff)
         grm.pcg_iterations += fit.pcg_iterations

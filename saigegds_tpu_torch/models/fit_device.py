@@ -1,8 +1,10 @@
 """Batched null-GLMM fits: P fits over ONE resident GRM, lane by lane.
 
-The counterpart of the PheWAS machinery of
-``saigegds_tpu/models/fit_device.py`` (``fit_glmm_binary_device_multi``,
-``fit_glmm_quant_device_multi``).  P phenotypes (a PheWAS fit) or P
+The counterpart of ``saigegds_tpu/models/fit_device.py``: the public
+device fitters ``fit_glmm_binary_device_multi``,
+``fit_glmm_quant_device_multi`` and their one-lane forms
+``fit_glmm_binary_device``, ``fit_glmm_quant_device`` (the multi fitters
+at P = 1, without the lane axis).  P phenotypes (a PheWAS fit) or P
 designs of one phenotype (the per-pair refits of GxG, ``X`` [P, N, K])
 run the AI-REML algorithm of the JAX package's device fitter lock-step:
 every stage stacks the right-hand sides of all lanes still running into
@@ -29,6 +31,14 @@ Host-path semantics carried over (src/saige_fitnull.cpp):
   this is the JAX package's all-R solve, column for column);
 * tau blow-up retry (:1039-1066): tau[1] halves, up to 10 times per
   iteration; the 11th failure ends the lane with ``converged=False``.
+
+The lanes run in groups sized to the card's free memory
+(:func:`_lane_groups`): each group runs the lock-step loop on its own and
+the results go back in lane order.  A lane's arithmetic does not depend
+on the other lanes, so the groups change no model; the probe pool and
+GRM @ U are shared by every group of a call.  The f32/f64 PCG of the
+JAX package (``pcg="mixed"``) exists because the TPU emulates f64 and is
+not ported.
 """
 
 from __future__ import annotations
@@ -42,7 +52,8 @@ from ..ops.pcg import pcg_solve
 
 
 class DeviceFit(NamedTuple):
-    """A batched fit's result; every field has a leading lane axis P."""
+    """A batched fit's result; every field but the counts has a leading
+    lane axis P (a one-lane fit's, none)."""
 
     coefficients: torch.Tensor   # [P, K]
     tau: torch.Tensor            # [P, 2]
@@ -54,7 +65,9 @@ class DeviceFit(NamedTuple):
     # True when a Hutchinson trace of the lane exhausted the probe pool
     # with its CV still above trace_cv_cutoff
     trace_capped: torch.Tensor   # [P] bool
-    pcg_iterations: int = 0      # over the fit's solves, each solve's most
+    # over the fit's solves, each solve's most, summed over the groups
+    pcg_iterations: int = 0
+    lane_groups: tuple = ()      # lanes per group, in lane order
 
 
 def _sym_inv(m: torch.Tensor) -> torch.Tensor:
@@ -110,12 +123,17 @@ class _Probes:
         self.op, self.U = op, U
         self.R = U.shape[1]
         self.nrun = min(nrun, self.R)
-        self.AU = op.matvec(U[:, :self.nrun])        # tau-invariant
+        # GRM @ U is tau-invariant; its columns are filled as the traces
+        # reach them, into one tensor allocated before any group runs
+        self.AU = torch.empty_like(U)
+        self.AU[:, :self.nrun] = op.matvec(U[:, :self.nrun])
+        self.filled = self.nrun
 
     def AU_cols(self, r: int) -> torch.Tensor:
-        if self.AU.shape[1] < r:
-            self.AU = torch.cat([self.AU, self.op.matvec(
-                self.U[:, self.AU.shape[1]:r])], dim=1)
+        if self.filled < r:
+            self.AU[:, self.filled:r] = self.op.matvec(
+                self.U[:, self.filled:r])
+            self.filled = r
         return self.AU[:, :r]
 
     def _estimates(self, Si_X, cov, Si_U, k0: int):
@@ -175,26 +193,156 @@ def _lane_design(X: torch.Tensor, P: int) -> torch.Tensor:
     return X if X.dim() == 3 else X.expand(P, *X.shape)
 
 
-def fit_glmm_binary_device_multi(op, Y, X, tau_init, eta_init, U, tol,
-                                 tol_pcg, maxiter: int = 20,
-                                 maxiter_pcg: int = 500,
-                                 maxiter_coef: int = 20, nrun: int = 30,
-                                 trace_cv_cutoff: float = 0.0025
-                                 ) -> DeviceFit:
-    """Fit P binary null GLMMs over ONE GRM operator ``op``, lock-step.
+# ---------------------------------------------------------------------------
+# the lanes in groups
 
-    ``Y`` [P, N] phenotypes, ``tau_init`` [P, 2], ``eta_init`` [P, N],
-    ``X`` [N, K] shared covariates (PheWAS) or [P, N, K] one design per
-    lane (GxG refits), ``U`` [N, R] the shared probe pool; tensors f64 on
-    ``op.device``.  Each lane reproduces the JAX package's
-    ``fit_glmm_binary_device`` on its own phenotype and design
-    (src/saige_fitnull.cpp:948-1110)."""
+# Device memory the group rule leaves unplanned: the CUDA libraries'
+# workspaces, the caching allocator's rounding and the host loop's small
+# tensors.
+_MARGIN_BYTES = 2 << 30
+# The share of the free memory beyond the margin that a group may plan to
+# fill.  PyTorch's caching allocator cuts the PCG's arrays out of the
+# multi-GB blocks that a product frees, so a later product's block finds
+# no segment whole: on an H100 at n = 430,000, groups planned to all of
+# the free memory beyond the margin (22 binary lanes, 22 variance-ratio
+# lanes) and to 92% of it (21 variance-ratio lanes) failed on 17.2-17.6
+# GiB blocks with 16.4-16.7 GiB reserved but unallocated; with the
+# allocator's expandable segments all of it served.  The share costs no
+# time there: 15 binary lanes took 15.1 s of AI-REML in one group and
+# 15.0 s in two (tools/phewas_groups_card.py), the products' cost growing
+# with their width.
+_PLAN_SHARE = 2 / 3
+# Bytes per sample of one f64 column of a stacked solve, at its peak (the
+# GRM product inside a PCG iteration): the PCG's state (``ops/pcg.py``:
+# the right-hand sides and their stacked copy, the weights, 1 / w,
+# diag(Sigma) and its inverse, x, r, z, p, Ap, r1, z1 and tau0 p / w: 14
+# arrays of 8 B) and the product's temporaries
+# (``ops/packed_grm.sharded_product`` at its widest: kernel B2's rows as
+# f64 and their weighted copy, 8 slices of 8 B each, 128 B; the 8 int8
+# slices of the column, 8 B; the recombined column, 8 B).
+_SOLVE_COL_BYTES = 14 * 8 + 128 + 8 + 8
+# Bytes per sample of the columns a product pads its slices with
+# (``packed_grm.kernel_cols``: up to 127), as B2's int32 and f64 rows
+# (only the f64 rows are alive at the product's peak).
+_PAD_BYTES = 127 * (4 + 8)
+
+
+def _lane_bytes(n: int, K: int, cols: int) -> int:
+    """Device bytes one lane adds to its group's peak: ``cols`` columns of
+    the widest stacked solve over ``n`` samples (:data:`_SOLVE_COL_BYTES`
+    each), and the lane's own state beside it (its design, the IRLS and
+    AI-REML vectors, the solutions kept from the stage before, its
+    phenotype and starting eta brought to the device, and 4 vectors of
+    headroom: 4K + 18 vectors of n f64).  On an H100 at n = 430,000 the
+    slopes of the peak allocated from 2 to 4 and from 4 to 6 lanes came
+    within 1% below this count (``chip_smoke.py`` phase 16 prints both)."""
+    return n * (_SOLVE_COL_BYTES * cols + 8 * (4 * K + 18))
+
+
+def _balanced(P: int, most: int) -> list:
+    """The fewest groups of at most ``most`` lanes, ``ceil(P / g)`` lanes
+    each (the last may hold fewer), as slices in lane order."""
+    g = -(-P // most)
+    size = -(-P // g)
+    return [slice(i, min(i + size, P)) for i in range(0, P, size)]
+
+
+def _groups_within(P: int, lane: int, budget: int, where: str) -> list:
+    """Groups of lanes of ``lane`` bytes each within ``budget`` bytes; a
+    RuntimeError when not even one lane fits."""
+    most = budget // lane if budget > 0 else 0
+    if most < 1:
+        raise RuntimeError(
+            f"one lane of the fit needs {lane} bytes of device memory and "
+            f"{max(budget, 0)} are free for it on {where}: free device "
+            f"memory, or fit fewer samples")
+    return _balanced(P, min(most, P))
+
+
+def _group_budget(free: int, n: int) -> int:
+    """The bytes a group's lanes may take of ``free`` device bytes:
+    :data:`_PLAN_SHARE` of what :data:`_MARGIN_BYTES` leaves, less the
+    slice padding of one product over ``n`` samples."""
+    return int(_PLAN_SHARE * (free - _MARGIN_BYTES)) - n * _PAD_BYTES
+
+
+def _lane_groups(P: int, n: int, K: int, cols: int, device) -> list:
+    """The groups a call's P lanes run in, as slices in lane order.
+
+    On a CUDA device the budget is :func:`_group_budget` of the free
+    memory at entry (``torch.cuda.mem_get_info`` after ``empty_cache``);
+    each lane takes :func:`_lane_bytes` for its widest stacked solve of
+    ``cols`` columns.  On the CPU every lane goes in one group."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [slice(0, P)]
+    torch.cuda.empty_cache()
+    free, _total = torch.cuda.mem_get_info(device)
+    return _groups_within(P, _lane_bytes(n, K, cols),
+                          _group_budget(free, n), str(device))
+
+
+_FIELDS = ("coefficients", "tau", "eta", "mu", "cov", "iterations",
+           "converged", "trace_capped")
+
+
+def _check_inputs(op, **tensors):
+    """Every input a float64 tensor on the operator's device."""
+    where = op.diag.device
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got "
+                            f"{type(t).__name__}")
+        if t.dtype != torch.float64 or t.device != where:
+            raise ValueError(f"{name} must be float64 on the operator's "
+                             f"device {where}, got {t.dtype} on {t.device}")
+
+
+def _grouped(probes: _Probes, P: int, N: int, K: int, cols: int,
+             like: torch.Tensor, run) -> DeviceFit:
+    """A call's P lanes group by group: its outputs allocated first, where
+    ``like`` (the phenotypes) lies, then the groups of :func:`_lane_groups`
+    on the operator's device for a widest solve of ``cols`` columns a
+    lane, each run by ``run(g)`` (the DeviceFit of lanes ``g``) and
+    copied into the outputs in lane order."""
+    dev, f64 = like.device, like.dtype
+    out = DeviceFit(
+        coefficients=torch.empty(P, K, dtype=f64, device=dev),
+        tau=torch.empty(P, 2, dtype=f64, device=dev),
+        eta=torch.empty(P, N, dtype=f64, device=dev),
+        mu=torch.empty(P, N, dtype=f64, device=dev),
+        cov=torch.empty(P, K, K, dtype=f64, device=dev),
+        iterations=torch.empty(P, dtype=torch.int64, device=dev),
+        converged=torch.empty(P, dtype=torch.bool, device=dev),
+        trace_capped=torch.empty(P, dtype=torch.bool, device=dev))
+    groups = _lane_groups(P, N, K, cols, probes.U.device)
+    its = 0
+    for g in groups:
+        fit = run(g)
+        for k in _FIELDS:
+            getattr(out, k)[g].copy_(getattr(fit, k))
+        its += fit.pcg_iterations
+        del fit
+    return out._replace(pcg_iterations=its, lane_groups=tuple(
+        g.stop - g.start for g in groups))
+
+
+def _one_lane(fit: DeviceFit) -> DeviceFit:
+    """A one-lane fit without its lane axis."""
+    return fit._replace(**{k: getattr(fit, k)[0] for k in _FIELDS})
+
+
+def _binary_lanes(op, probes: _Probes, Y, Xl, tau_init, eta_init, tol,
+                  tol_pcg, maxiter: int, maxiter_pcg: int,
+                  maxiter_coef: int, trace_cv_cutoff: float) -> DeviceFit:
+    """One group of :func:`fit_glmm_binary_device_multi`: its P lanes
+    (``Y`` [P, N], ``Xl`` [P, N, K], ``tau_init`` [P, 2], ``eta_init``
+    [P, N]) lock-step over the call's probe pool."""
     P, N = Y.shape
-    Xl = _lane_design(X, P)
     K = Xl.shape[2]
     dev, f64 = Y.device, Y.dtype
     tol_inv_2 = 1.0 / (tol * tol)
-    probes = _Probes(op, U, nrun)
+    U = probes.U
     its = [0]
 
     def pcg(W, tau, B):
@@ -303,25 +451,17 @@ def fit_glmm_binary_device_multi(op, Y, X, tau_init, eta_init, U, tol,
                      pcg_iterations=its[0])
 
 
-def fit_glmm_quant_device_multi(op, Y, X, tau_init, U, tol, tol_pcg,
-                                maxiter: int = 20, maxiter_pcg: int = 500,
-                                nrun: int = 30,
-                                trace_cv_cutoff: float = 0.0025
-                                ) -> DeviceFit:
-    """Fit P quantitative null GLMMs over ONE GRM operator, lock-step.
-
-    ``Y`` [P, N] (gaussian working responses), ``tau_init`` [P, 2], ``X``
-    [N, K] or [P, N, K], ``U`` [N, R].  Gaussian weights are ones, so the
-    inner IRLS is one solve per stage; the 2x2 AI step halves while a tau
-    is negative, with the zero_v clamps, and a lane stops at the 2% rule
-    (src/saige_fitnull.cpp:893-928, 1160-1170), as the JAX package's
-    ``fit_glmm_quant_device`` does for one lane."""
+def _quant_lanes(op, probes: _Probes, Y, Xl, tau_init, tol, tol_pcg,
+                 maxiter: int, maxiter_pcg: int,
+                 trace_cv_cutoff: float) -> DeviceFit:
+    """One group of :func:`fit_glmm_quant_device_multi`: its P lanes
+    (``Y`` [P, N], ``Xl`` [P, N, K], ``tau_init`` [P, 2]) lock-step over
+    the call's probe pool."""
     P, N = Y.shape
-    Xl = _lane_design(X, P)
     K = Xl.shape[2]
     dev, f64 = Y.device, Y.dtype
+    U = probes.U
     ones = torch.ones(P, N, dtype=f64, device=dev)
-    probes = _Probes(op, U, nrun)
     its = [0]
 
     def pcg(ix, tau, B):
@@ -396,6 +536,8 @@ def fit_glmm_quant_device_multi(op, Y, X, tau_init, U, tol, tol_pcg,
     s = torch.stack([torch.sum(PY * PY, 1) - trace0,
                      torch.sum(PY * APY, 1) - trace1], dim=1)
     tau = torch.clamp_min(tau_init + tau_init ** 2 * s / N, 0.0)
+    # the first solve's columns would stay alive beside every later one
+    del cov, Si_Y, Si_X, Si_U, PY, APY
     it = torch.zeros(P, dtype=torch.int64, device=dev)
     done = torch.zeros(P, dtype=torch.bool, device=dev)
     while True:
@@ -414,3 +556,129 @@ def fit_glmm_quant_device_multi(op, Y, X, tau_init, U, tol, tol_pcg,
     return DeviceFit(coefficients=alpha_f, tau=tau, eta=eta_f, mu=eta_f,
                      cov=cov_f, iterations=it, converged=done,
                      trace_capped=capped, pcg_iterations=its[0])
+
+
+def fit_glmm_binary_device_multi(op, Y, X, tau_init, eta_init, U, tol,
+                                 tol_pcg, maxiter: int = 20,
+                                 maxiter_pcg: int = 500,
+                                 maxiter_coef: int = 20, nrun: int = 30,
+                                 trace_cv_cutoff: float = 0.0025
+                                 ) -> DeviceFit:
+    """Fit P binary null GLMMs over ONE GRM operator ``op``, lock-step.
+
+    ``op`` is a GRM operator on one device (``Packed2GRM``, the dense
+    ``GRMOperator`` or a ``ShardedGrmHandle`` within one process); ``Y``
+    [P, N] phenotypes, ``tau_init`` [P, 2], ``eta_init`` [P, N], ``X``
+    [N, K] shared covariates (PheWAS) or [P, N, K] one design per lane
+    (GxG refits), ``U`` [N, R] the shared probe pool; tensors f64 on the
+    operator's device.  Each lane reproduces the JAX package's
+    ``fit_glmm_binary_device`` on its own phenotype and design
+    (src/saige_fitnull.cpp:948-1110).  The lanes run in the groups of
+    :func:`_lane_groups`, the probe pool shared by all of them; the
+    outputs' [P, N] eta and mu are allocated on the device beside the
+    inputs."""
+    _check_inputs(op, Y=Y, X=X, tau_init=tau_init, eta_init=eta_init, U=U)
+    return _binary_multi(op, Y, X, tau_init, eta_init, U, tol, tol_pcg,
+                         maxiter, maxiter_pcg, maxiter_coef, nrun,
+                         trace_cv_cutoff)
+
+
+def _binary_multi(op, Y, X, tau_init, eta_init, U, tol, tol_pcg,
+                  maxiter: int = 20, maxiter_pcg: int = 500,
+                  maxiter_coef: int = 20, nrun: int = 30,
+                  trace_cv_cutoff: float = 0.0025) -> DeviceFit:
+    """:func:`fit_glmm_binary_device_multi` with the lanes' ``Y``,
+    ``tau_init``, ``eta_init`` (and ``X`` [P, N, K]) on the device of
+    ``U`` or on the host: each group's are brought to ``U``'s device, and
+    the outputs lie where ``Y`` does (``fit_null_glmm_multi`` keeps them
+    on the host, so the device holds one group's lanes at a time)."""
+    P, N = Y.shape
+    K = X.shape[-1]
+    dev = U.device
+    probes = _Probes(op, U, nrun)
+
+    def run(g):
+        return _binary_lanes(op, probes, Y[g].to(dev),
+                             _lane_design(X, P)[g].to(dev),
+                             tau_init[g].to(dev), eta_init[g].to(dev), tol,
+                             tol_pcg, maxiter, maxiter_pcg, maxiter_coef,
+                             trace_cv_cutoff)
+
+    return _grouped(probes, P, N, K, 1 + max(K, probes.nrun), Y, run)
+
+
+def fit_glmm_quant_device_multi(op, Y, X, tau_init, U, tol, tol_pcg,
+                                maxiter: int = 20, maxiter_pcg: int = 500,
+                                nrun: int = 30,
+                                trace_cv_cutoff: float = 0.0025
+                                ) -> DeviceFit:
+    """Fit P quantitative null GLMMs over ONE GRM operator, lock-step.
+
+    ``op`` as for :func:`fit_glmm_binary_device_multi`; ``Y`` [P, N]
+    (gaussian working responses), ``tau_init`` [P, 2], ``X`` [N, K] or
+    [P, N, K], ``U`` [N, R].  Gaussian weights are ones, so the inner IRLS
+    is one solve per stage; the 2x2 AI step halves while a tau is
+    negative, with the zero_v clamps, and a lane stops at the 2% rule
+    (src/saige_fitnull.cpp:893-928, 1160-1170), as the JAX package's
+    ``fit_glmm_quant_device`` does for one lane.  The lanes run in the
+    groups of :func:`_lane_groups`."""
+    _check_inputs(op, Y=Y, X=X, tau_init=tau_init, U=U)
+    return _quant_multi(op, Y, X, tau_init, U, tol, tol_pcg, maxiter,
+                        maxiter_pcg, nrun, trace_cv_cutoff)
+
+
+def _quant_multi(op, Y, X, tau_init, U, tol, tol_pcg, maxiter: int = 20,
+                 maxiter_pcg: int = 500, nrun: int = 30,
+                 trace_cv_cutoff: float = 0.0025) -> DeviceFit:
+    """:func:`fit_glmm_quant_device_multi` with the lanes' inputs on the
+    device of ``U`` or on the host, as :func:`_binary_multi` takes them."""
+    P, N = Y.shape
+    K = X.shape[-1]
+    dev = U.device
+    probes = _Probes(op, U, nrun)
+
+    def run(g):
+        return _quant_lanes(op, probes, Y[g].to(dev),
+                            _lane_design(X, P)[g].to(dev),
+                            tau_init[g].to(dev), tol, tol_pcg, maxiter,
+                            maxiter_pcg, trace_cv_cutoff)
+
+    return _grouped(probes, P, N, K, 1 + K + probes.nrun, Y, run)
+
+
+def fit_glmm_binary_device(op, y, X, tau_init, eta_init, U, tol, tol_pcg,
+                           maxiter: int = 20, maxiter_pcg: int = 500,
+                           maxiter_coef: int = 20, nrun: int = 30,
+                           trace_cv_cutoff: float = 0.0025,
+                           pcg: str = "exact") -> DeviceFit:
+    """Binary-trait null GLMM fit of one phenotype: ``y`` [N], ``X`` [N,
+    K], ``tau_init`` [2], ``eta_init`` [N], ``U`` [N, R] the probe pool
+    (R >= nrun; the extra columns feed the trace-CV escalation), tensors
+    f64 on the operator's device.  :func:`fit_glmm_binary_device_multi` at
+    P = 1; the DeviceFit has no lane axis (tau [2], coefficients [K], eta
+    and mu [N], cov [K, K], 0-d iterations, converged and trace_capped).
+    ``pcg="mixed"`` (the JAX package's f32/f64 PCG, a cure for the TPU's
+    emulated f64) raises NotImplementedError."""
+    if pcg == "mixed":
+        raise NotImplementedError(
+            "pcg='mixed' is not ported: the f32/f64 PCG exists because the "
+            "TPU emulates f64; the card runs the f64 PCG (pcg='exact')")
+    if pcg != "exact":
+        raise ValueError(f"pcg must be 'exact' or 'mixed', got {pcg!r}")
+    return _one_lane(fit_glmm_binary_device_multi(
+        op, y[None], X, tau_init[None], eta_init[None], U, tol, tol_pcg,
+        maxiter=maxiter, maxiter_pcg=maxiter_pcg, maxiter_coef=maxiter_coef,
+        nrun=nrun, trace_cv_cutoff=trace_cv_cutoff))
+
+
+def fit_glmm_quant_device(op, y, X, tau_init, U, tol, tol_pcg,
+                          maxiter: int = 20, maxiter_pcg: int = 500,
+                          nrun: int = 30,
+                          trace_cv_cutoff: float = 0.0025) -> DeviceFit:
+    """Quantitative-trait (gaussian identity-link) null GLMM fit of one
+    phenotype: ``y`` [N] (the working response), ``X`` [N, K],
+    ``tau_init`` [2], ``U`` [N, R], tensors f64 on the operator's device.
+    :func:`fit_glmm_quant_device_multi` at P = 1, without the lane axis."""
+    return _one_lane(fit_glmm_quant_device_multi(
+        op, y[None], X, tau_init[None], U, tol, tol_pcg, maxiter=maxiter,
+        maxiter_pcg=maxiter_pcg, nrun=nrun, trace_cv_cutoff=trace_cv_cutoff))

@@ -90,12 +90,14 @@ class _FitGRM:
     """One fit's handle on the GRM operator ``op`` (a
     :class:`~..ops.packed_grm.Packed2GRM` or the dense oracle): the fit's
     solves and products go through it, and it counts this fit's PCG
-    iterations (the operator counts only its products)."""
+    iterations (the operator counts only its products); a PheWAS fit's
+    variance-ratio pass records its lanes per group."""
 
     def __init__(self, op):
         self.op = op
         self.n_samples = op.n_samples
         self.pcg_iterations = 0
+        self.var_ratio_groups = []
 
 
 def _pcg(grm: _FitGRM, w, tau, B, tol, maxiter):
@@ -722,13 +724,47 @@ def calc_var_ratio_multi(grm: _FitGRM, codes, fit0s, glmms, noks,
     per-column PCG, so the GRM streams once per chunk for every lane.  A
     lane whose ratio CV has converged takes no more chunks.  Requires
     equal covariate widths; no checkpoint.  Returns P row-dicts shaped
-    like :func:`calc_var_ratio`'s."""
-    from .fit_device import _pcg_multi
+    like :func:`calc_var_ratio`'s.
+
+    The lanes run in the groups of ``fit_device._lane_groups`` (each
+    group walks the markers on its own; a lane's markers and ratios do
+    not depend on the other lanes), recorded on ``grm`` as
+    ``var_ratio_groups``."""
+    from . import fit_device
 
     P = len(glmms)
     if len({nok.X1.shape[1] for nok in noks}) != 1:
         raise ValueError("calc_var_ratio_multi requires equal covariate "
                          "widths; run calc_var_ratio per phenotype")
+    n, K = noks[0].X1.shape
+    groups = fit_device._lane_groups(P, n, K, _var_ratio_cols(cfg, K),
+                                     grm.op.device)
+    grm.var_ratio_groups = [g.stop - g.start for g in groups]
+    rows = []
+    for g in groups:
+        rows += _var_ratio_lanes(grm, codes, fit0s[g], glmms[g], noks[g],
+                                 cfg, marker_order, binary, verbose, g.start)
+    return rows
+
+
+def _var_ratio_cols(cfg: NullModelConfig, K: int) -> int:
+    """The columns a variance-ratio lane is reckoned at by the group rule:
+    its widest solve (the first chunk's markers, a later chunk's 10 or the
+    covariates) and one more, for its marker rows and solved covariates
+    beside the solve (on an H100 at n = 430,000 a lane of 30 markers
+    added 8,098 B a sample to the peak, against 8,080 reckoned for 30
+    columns and the product's padding: tools/phewas_groups_card.py)."""
+    return max(cfg.num_marker, 10, K) + 1
+
+
+def _var_ratio_lanes(grm: _FitGRM, codes, fit0s, glmms, noks,
+                     cfg: NullModelConfig, marker_order: np.ndarray,
+                     binary: bool, verbose, first: int):
+    """One group of :func:`calc_var_ratio_multi`: its lanes, the
+    phenotypes ``first``, ``first + 1``, ... of the call."""
+    from .fit_device import _pcg_multi
+
+    P = len(glmms)
     op = grm.op
     t = lambda a: torch.as_tensor(np.asarray(a, np.float64),
                                   device=op.device)
@@ -799,12 +835,13 @@ def calc_var_ratio_multi(grm: _FitGRM, codes, fit0s, glmms, noks,
                     rows[p]["var1"].append(v1)
                     rows[p]["var2"].append(v2)
                     rows[p]["ratio"].append(v1 / v2)
-                    telemetry.emit("var_ratio_marker", phenotype=p,
+                    telemetry.emit("var_ratio_marker", phenotype=first + p,
                                    id=i_snp, maf=af, mac=acs, var1=v1,
                                    var2=v2, ratio=v1 / v2)
                     if verbose:
-                        print(f"    phenotype {p}, marker {i_snp}: maf "
-                              f"{af:.4g}, mac {acs:g}, ratio {v1 / v2:.6g}")
+                        print(f"    phenotype {first + p}, marker {i_snp}: "
+                              f"maf {af:.4g}, mac {acs:g}, ratio "
+                              f"{v1 / v2:.6g}")
             num_tested += len(pending)
         still = []
         for p in active:
@@ -812,7 +849,7 @@ def calc_var_ratio_multi(grm: _FitGRM, codes, fit0s, glmms, noks,
                 cv = _calc_cv(rows[p]["ratio"])
                 if cv > cfg.ratio_cv_cutoff:
                     num_marker[p] = num_tested + 10
-                    telemetry.emit("ratio_escalation", phenotype=p,
+                    telemetry.emit("ratio_escalation", phenotype=first + p,
                                    num_marker=num_marker[p], cv=cv,
                                    cutoff=cfg.ratio_cv_cutoff)
                     still.append(p)
@@ -1146,12 +1183,15 @@ def fit_null_glmm_multi(formulas, data, gdsfile,
     it agrees with the host fit within the 2% stopping rule; no
     checkpoint.  ``model_savefn``: a pattern with ``{}`` (the phenotype's
     index).  ``instrument``: as :func:`fit_null_glmm`'s, with
-    ``outer_iterations`` per phenotype and ``lanes`` (P).  Each model's
+    ``outer_iterations`` per phenotype, ``lanes`` (P), and the lanes per
+    group of the AI-REML fit and of the variance ratios (``lane_groups``,
+    ``var_ratio_groups``): both run their phenotypes in groups sized to
+    the device's free memory (``fit_device._lane_groups``; one group on
+    the CPU), which changes no model.  Each model's
     ``fit_log`` is a list of its own: the variance-ratio events of its
     phenotype (the batched fitter emits no iteration events).  Returns
     one :class:`NullModel` per formula."""
-    from .fit_device import (fit_glmm_binary_device_multi,
-                             fit_glmm_quant_device_multi)
+    from .fit_device import _binary_multi, _quant_multi
 
     cfg = config
     dev = check_device(device)
@@ -1207,20 +1247,23 @@ def fit_null_glmm_multi(formulas, data, gdsfile,
     U = np.stack([rng.rademacher(n).astype(np.float64) for _ in range(R)],
                  axis=1)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    # the lanes' [P, N] phenotypes, starts and fitted values stay on the
+    # host: the device holds one group's at a time, so P is bounded by
+    # the host's memory, not the device's
+    host = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+    tau0 = host(np.stack([tau for _f, _n, tau in starts]))
     with telemetry.collect(verbose=verbose) as tele:
         if binary:
-            fit = fit_glmm_binary_device_multi(
-                grm.op, t(np.stack(ys)), t(X_new),
-                t(np.stack([tau for _f, _n, tau in starts])),
-                t(np.stack([f0.linear_predictors for f0 in fit0s])), t(U),
-                cfg.tol, cfg.tol_pcg, maxiter=cfg.maxiter,
+            fit = _binary_multi(
+                grm.op, host(np.stack(ys)), t(X_new), tau0,
+                host(np.stack([f0.linear_predictors for f0 in fit0s])),
+                t(U), cfg.tol, cfg.tol_pcg, maxiter=cfg.maxiter,
                 maxiter_pcg=cfg.maxiter_pcg, nrun=cfg.nrun,
                 trace_cv_cutoff=cfg.trace_cv_cutoff)
         else:
-            fit = fit_glmm_quant_device_multi(
-                grm.op, t(np.stack(ys)), t(X_new),
-                t(np.stack([tau for _f, _n, tau in starts])), t(U),
-                cfg.tol, cfg.tol_pcg, maxiter=cfg.maxiter,
+            fit = _quant_multi(
+                grm.op, host(np.stack(ys)), t(X_new), tau0, t(U), cfg.tol,
+                cfg.tol_pcg, maxiter=cfg.maxiter,
                 maxiter_pcg=cfg.maxiter_pcg, nrun=cfg.nrun,
                 trace_cv_cutoff=cfg.trace_cv_cutoff)
         grm.pcg_iterations += fit.pcg_iterations
@@ -1242,6 +1285,7 @@ def fit_null_glmm_multi(formulas, data, gdsfile,
         t2 = time.perf_counter()
         if cfg.var_ratio_mac_cat:
             vrs = []
+            grm.var_ratio_groups = [1] * P
             for p in range(P):
                 with telemetry.collect(verbose=verbose) as lane:
                     vrs.append(calc_var_ratio_cat(
@@ -1260,7 +1304,9 @@ def fit_null_glmm_multi(formulas, data, gdsfile,
                           outer_iterations=[g.iterations for g in glmms],
                           matvecs=grm.op.matvecs,
                           product_widths=dict(getattr(grm.op, "widths", {})),
-                          pcg_iterations=grm.pcg_iterations, lanes=P)
+                          pcg_iterations=grm.pcg_iterations, lanes=P,
+                          lane_groups=list(fit.lane_groups),
+                          var_ratio_groups=grm.var_ratio_groups)
     models = []
     for p in range(P):
         model = _assemble_model(cfg, glmms[p], vrs[p], noks[p],

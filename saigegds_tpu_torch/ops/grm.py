@@ -34,6 +34,15 @@ class GRMOperator:
         self.matvecs += 1
         return (self.std_geno.T @ (self.std_geno @ b)) / self.n_variants
 
+    @classmethod
+    def from_arrays(cls, std_geno, diag, *, device) -> "GRMOperator":
+        """Carry a dense operator across as numpy arrays: the JAX
+        package's ``GRMOperator`` fields ``std_geno`` [M, N] and ``diag``
+        [N], as f64 on ``device``."""
+        dev = check_device(device)
+        f64 = lambda a: torch.tensor(np.asarray(a, np.float64), device=dev)
+        return cls(f64(std_geno), f64(diag))
+
 
 def std_lookup_table(codes: np.ndarray) -> np.ndarray:
     """Per-variant 4-value standardized lookup [M, 4] from int8 codes.

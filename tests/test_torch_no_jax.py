@@ -7,7 +7,8 @@
   ``$dosage_alt`` node, runs ``assoc_spa_user``, the burden test and
   ACAT-O over DS units, fits with ``checkpoint=`` and
   ``var_ratio_mac_cat=``, and reads and writes ``.rds``/``.rda`` models
-  and tables; it runs the PheWAS fit and scan, GxG and the command line's
+  and tables; it runs the PheWAS fit and scan, the four public device
+  fitters, GxG and the command line's
   ``fit`` and ``scan`` (``python -m saigegds_tpu_torch``); it imports
   ``parallel/`` and fits and scans over a mesh of CPU shards and through
   the variant-range shard API, and takes a GRM product over a mesh that
@@ -256,6 +257,27 @@ for i in range(2):
 models = sg.fit_null_glmm_multi(["y0 ~ x1", "y1 ~ x1"], data, path,
                                 device="cpu")
 assert all(np.isfinite(m.tau).all() for m in models)
+# the public device fitters over an operator, one lane and several
+import torch
+from saigegds_tpu_torch.models.glm import glm_binomial
+from saigegds_tpu_torch.ops.packed_grm import build_packed2_grm
+t = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+op = build_packed2_grm(codes, device="cpu")
+Xd = np.column_stack([np.ones(N), data["x1"]])
+U = t(rng.choice([-1.0, 1.0], size=(N, 40)))
+Y = np.stack([data["y0"], data["y1"]])
+E = t(np.stack([glm_binomial(Xd, y).linear_predictors for y in Y]))
+fb = sg.fit_glmm_binary_device_multi(op, t(Y), t(Xd), t([[1.0, 0.5]] * 2),
+                                     E, U, 0.02, 1e-5)
+f1 = sg.fit_glmm_binary_device(op, t(Y[1]), t(Xd), t([1.0, 0.5]), E[1], U,
+                               0.02, 1e-5)
+assert torch.allclose(f1.tau, fb.tau[1], rtol=1e-10) and f1.tau.shape == (2,)
+yq = t(np.stack([g + rng.normal(size=N) for _ in range(2)]))
+tq = t([[0.5, 0.5]] * 2)
+fq = sg.fit_glmm_quant_device_multi(op, yq, t(Xd), tq, U, 0.02, 1e-5)
+f1q = sg.fit_glmm_quant_device(op, yq[0], t(Xd), tq[0], U, 0.02, 1e-5)
+assert torch.allclose(f1q.tau, fq.tau[0], rtol=1e-10)
+assert fb.lane_groups == fq.lane_groups == (2,)
 tabs = sg.assoc_spa_multi(path, models, sg.ScanConfig(block_size=32),
                           device="cpu")
 assert len(tabs) == 2 and np.array_equal(tabs[0]["id"], tabs[1]["id"])
