@@ -258,6 +258,7 @@ GDS files live in ``_smoke/`` beside this script and are removed at the
 end.
 """
 
+import contextlib
 import ctypes
 import gc
 import json
@@ -1416,6 +1417,27 @@ def scan(gds: str, model, device: str, variant_mask=None,
     return tab, inst, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def phase1_payloads():
+    """The bytes of each phase-1 payload the scans in the block upload, in
+    order: read where the scan's ``_upload`` hands a block's payload to
+    ``_to_device``."""
+    from saigegds_tpu_torch.assoc import single
+
+    shipped, real = [], single._to_device
+
+    def to_device(a, device):
+        if sys._getframe(1).f_code.co_name == "_upload":
+            shipped.append(a.nbytes)
+        return real(a, device)
+
+    single._to_device = to_device
+    try:
+        yield shipped
+    finally:
+        single._to_device = real
+
+
 def check_table(tab: dict):
     p = tab["pval"]
     if not (len(p) and np.all(np.isfinite(p)) and np.all((p >= 0) & (p <= 1))):
@@ -1736,7 +1758,8 @@ def ds_scan(y: np.ndarray, sample_id: np.ndarray, model, model_q,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        tab, inst, wall = scan(gds, m, "cuda", block=DS_BLOCK)
+        with phase1_payloads() as shipped:
+            tab, inst, wall = scan(gds, m, "cuda", block=DS_BLOCK)
         expect_launches(f"the DS scan ({name})", {})
         peak = torch.cuda.max_memory_allocated() / 2**30
         check_table(tab)
@@ -1748,21 +1771,21 @@ def ds_scan(y: np.ndarray, sample_id: np.ndarray, model, model_q,
             raise AssertionError("a quantitative DS variant went to SPA")
         if len(inst["gather_s"]) != n_blocks:
             raise AssertionError("the DS scan did not gather every block")
+        if len(shipped) != n_blocks:
+            raise AssertionError("the DS scan did not upload every block")
         stages = {k: round(float(np.sum(inst[k])), 3)
-                  for k in ("decode_s", "gather_s", "pack_s", "upload_s",
-                            "dispatch_s", "drain_s")}
-        f32 = sum(b == DS_BLOCK * N_SAMPLES * 4 for b in inst["bytes"])
+                  for k in ("decode_s", "gather_s")}
+        f32 = sum(b == DS_BLOCK * N_SAMPLES * 4 for b in shipped)
         log(f"DS scan on the card ({name}): {len(tab['pval'])} of {N_DS} "
             f"variants tested, {inst['spa_n']} through SPA, min p "
             f"{tab['pval'].min():.3e}, {wall:.2f} s wall, "
             f"{N_DS / wall:.1f} variants/s; {f32} of {n_blocks} blocks "
-            f"shipped f32, {sum(inst['bytes']) / 1e9:.2f} GB in all; peak "
+            f"shipped f32, {sum(shipped) / 1e9:.2f} GB in all; peak "
             f"device memory {peak:.2f} GiB")
         log(f"  stage sums (s, stages overlap): {json.dumps(stages)}, "
             f"spa_s {inst['spa_s']:.3f}; per block: decode "
-            f"{stages['decode_s'] / n_blocks:.3f} s, pack (gather and "
-            f"f32 check) {stages['pack_s'] / n_blocks:.3f} s, upload "
-            f"{stages['upload_s'] / n_blocks:.3f} s")
+            f"{stages['decode_s'] / n_blocks:.3f} s, sample gather "
+            f"{stages['gather_s'] / n_blocks:.3f} s")
         cpu, _, wall_cpu = scan(gds, m, "cpu", variant_mask=mask & (
             np.arange(N_DS) < DS_CPU_ROWS), block=DS_BLOCK)
         worst = compare_dense(tab, cpu, RTOL)
@@ -1792,8 +1815,9 @@ def dense_vs_packed(gds7: str, tab7: dict, model, ds: dict):
     reset_launches()
     mask = np.zeros(N_VARIANTS, bool)
     mask[:N_ALT] = True
-    tab, inst, wall = scan(gds7, model, "cuda", dsnode="$dosage_alt",
-                           variant_mask=mask)
+    with phase1_payloads() as shipped:
+        tab, inst, wall = scan(gds7, model, "cuda", dsnode="$dosage_alt",
+                               variant_mask=mask)
     expect_launches("the $dosage_alt scan", {})
     peak = torch.cuda.max_memory_allocated() / 2**30
     # phase 7's GDS numbers its variants 1..N_VARIANTS
@@ -1804,11 +1828,10 @@ def dense_vs_packed(gds7: str, tab7: dict, model, ds: dict):
     log(f"$dosage_alt scan of phase 7's first {N_ALT} variants on the card: "
         f"{len(tab['id'])} variants, {inst['spa_n']} through SPA, "
         f"{wall:.2f} s wall ({N_ALT / wall:.1f} variants/s, decode "
-        f"{np.sum(inst['decode_s']):.2f} s, pack "
-        f"{np.sum(inst['pack_s']):.2f} s, upload "
-        f"{np.sum(inst['upload_s']):.2f} s, SPA {inst['spa_s']:.2f} s), "
-        f"{sum(b == BLOCK * N_SAMPLES * 4 for b in inst['bytes'])} of "
-        f"{len(inst['bytes'])} blocks shipped f32; peak device memory "
+        f"{np.sum(inst['decode_s']):.2f} s, sample gather "
+        f"{np.sum(inst['gather_s']):.2f} s, SPA {inst['spa_s']:.2f} s), "
+        f"{sum(b == BLOCK * N_SAMPLES * 4 for b in shipped)} of "
+        f"{len(shipped)} blocks shipped f32; peak device memory "
         f"{peak:.2f} GiB; the packed table within {worst:.3e} (limit "
         f"{RTOL}), the same SPA set")
 
@@ -2474,7 +2497,8 @@ def phewas_scan(gds7: str, models: list, model_q, scan7: dict,
     wall = time.perf_counter() - t0
     counts = expect_launches("the PheWAS scan",
                              {"indicator_dot_2bit": P * n_blocks})
-    if len(inst["decode_s"]) != n_blocks or len(inst["pack_s"]) != n_blocks:
+    if len(inst["decode_s"]) != n_blocks or \
+            len(inst["gather_s"]) != n_blocks:
         raise AssertionError("the PheWAS scan did not decode each block "
                              "once")
     for tab in tabs:
@@ -3374,8 +3398,7 @@ def main() -> int:
         if inst["spa_n"] == 0 or refined == 0:
             raise AssertionError("no variant went through SPA")
         stages = {k: round(float(np.sum(inst[k])), 3)
-                  for k in ("decode_s", "gather_s", "pack_s", "upload_s",
-                            "dispatch_s", "drain_s")}
+                  for k in ("decode_s", "gather_s")}
         if len(inst["gather_s"]) != n_blocks:
             raise AssertionError("the scan did not gather the model's "
                                  "samples in every block")
@@ -3389,7 +3412,7 @@ def main() -> int:
         log(f"  stage sums (s, stages overlap): "
             f"{json.dumps(stages)}, spa_s {inst['spa_s']:.3f}; per block: "
             f"decode {stages['decode_s'] / n_blocks:.3f} s, sample gather "
-            f"{stages['gather_s'] / n_blocks:.3f} s (inside pack_s)")
+            f"{stages['gather_s'] / n_blocks:.3f} s")
 
         # the first block's first CPU_ROWS variants on the CPU
         mask = np.zeros(N_VARIANTS, bool)
@@ -3425,8 +3448,7 @@ def main() -> int:
             raise AssertionError("a quantitative variant went to SPA, or "
                                  "the table has p.norm / converged")
         stages = {k: round(float(np.sum(inst[k])), 3)
-                  for k in ("decode_s", "gather_s", "pack_s", "upload_s",
-                            "dispatch_s", "drain_s")}
+                  for k in ("decode_s", "gather_s")}
         log(f"quantitative scan on the card: {len(tab['pval'])} of "
             f"{N_VARIANTS} variants tested, none through SPA, min p "
             f"{tab['pval'].min():.3e}, {wall:.2f} s wall, "

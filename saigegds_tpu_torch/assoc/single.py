@@ -39,6 +39,7 @@ from ..ops.score import ScanParams, score_stats_binary, score_stats_quant, \
 from ..ops.score_packed import pack_scan_model, score_stats_binary_packed, \
     score_stats_quant_packed
 from ..ops.sparse_codes import SPARSE_NNZ_FRAC, encode_sparse_rows
+from ..utils import profiling
 
 SPA_BATCH = 256  # compact SPA refinement batch size
 SPA_FLUSH_BYTES = 1 << 30  # flagged-set host budget before an incremental
@@ -47,50 +48,40 @@ DEPTH = 3        # blocks in flight between dispatch and readback
 CHECK_ELEMS = 1 << 20   # elements per chunk of the host's dosage checks
 
 
-def _prefetch_blocks(block_iter, depth: int = 2, name: str = "",
-                     instrument=None):
+def _prefetch_blocks(block_iter, depth: int = 2, wait: str = ""):
     """Run the block iterator in a background thread with a bounded queue,
     so the stage producing block k+1 overlaps the consumer of block k
-    (decode is zlib/lzma + native kernels — all release the GIL).
-
-    With ``instrument`` and ``name``, three per-item wait timers land in
-    lists: ``stall_{name}_s`` — the producer blocked on a full queue (the
-    stage DOWNSTREAM of ``name`` is the laggard); ``idle_{name}_s`` — the
-    consumer blocked on an empty queue (``name`` itself is the laggard);
-    ``queued_{name}_s`` — how long a finished item sat ready-but-unconsumed.
-    """
-    import time as _time
+    (decode is zlib/lzma + native kernels — all release the GIL).  The
+    thread records its spans as part of the consumer's public call;
+    ``wait`` names the span of the consumer's waits on the queue."""
     import queue
     import threading
 
     q = queue.Queue(maxsize=depth)
     _END = object()
-    rec = (lambda k, v: instrument.setdefault(k, []).append(v)) \
-        if instrument is not None and name else (lambda k, v: None)
+    ctx = profiling.carry()
 
     def worker():
-        try:
-            for item in block_iter:
-                t0 = _time.perf_counter()
-                q.put((t0, item))
-                rec(f"stall_{name}_s", _time.perf_counter() - t0)
-            q.put(_END)
-        except BaseException as e:               # surface in the consumer
-            q.put(e)
+        with profiling.adopt(ctx):
+            try:
+                for item in block_iter:
+                    q.put(item)
+                q.put(_END)
+            except BaseException as e:           # surface in the consumer
+                q.put(e)
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        t0 = _time.perf_counter()
-        item = q.get()
-        t1 = _time.perf_counter()
+        if wait:
+            with profiling.span(wait):
+                item = q.get()
+        else:
+            item = q.get()
         if item is _END:
             break
         if isinstance(item, BaseException):
             raise item
-        t_ready, item = item
-        rec(f"idle_{name}_s", t1 - t0)
-        rec(f"queued_{name}_s", max(t1 - t_ready, 0.0))
         yield item
 
 
@@ -134,6 +125,7 @@ def _pack2_block(G: np.ndarray) -> np.ndarray:
     return pack_codes_2bit(G)
 
 
+@profiling.entry("scan.call")
 def assoc_spa(gdsfile, modobj: Union[NullModel, str],
               config: ScanConfig = ScanConfig(),
               res_savefn: str = "", verbose: bool = False,
@@ -150,7 +142,7 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
     the dense dosage route.  ``variant_mask`` restricts the scan;
     ``res_compress`` is the output compression of :func:`save_assoc`.
     ``instrument``: optional dict that collects per-stage wall-times (see
-    :func:`_scan_blocks`).  ``mesh`` (``parallel/mesh.make_mesh``, its
+    :func:`_scan_blocks_multi`).  ``mesh`` (``parallel/mesh.make_mesh``, its
     lead device ``device``) splits each block's variants over the mesh's
     devices, phase 1 of each part on its device against a copy of the
     model; SPA runs on the lead, and the table equals the one-device
@@ -160,8 +152,9 @@ def assoc_spa(gdsfile, modobj: Union[NullModel, str],
     does.  Returns the result table as an ordered dict of numpy columns.
     """
     dev = _scan_device(device, mesh)
-    model = NullModel.load(modobj)
-    seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
+    with profiling.span("scan.prepare"):
+        model = NullModel.load(modobj)
+        seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
     if verbose:
         print(f"SPA association scan ({model.trait_type} trait) on {dev}: "
               f"{seq.n_variants} variants x {model.n_samples} samples")
@@ -203,20 +196,21 @@ def _scan_models(seq: SeqData, models: list, config: ScanConfig,
     # model's per-sample arrays to those columns
     cols0 = None
     scan_models = []
-    for i, model in enumerate(models):
-        cols, ii = _match_samples(seq.sample_id, model.sample_id)
-        if i == 0:
-            cols0 = cols
-        elif not ((cols is None and cols0 is None) or
-                  (cols is not None and cols0 is not None and
-                   np.array_equal(cols, cols0))):
-            raise ValueError(
-                "assoc_spa_multi: all models must select the same GDS "
-                "sample columns (fit them on one sample universe, or scan "
-                "separately with assoc_spa)")
-        scan_models.append((model.scan_model(
-            sample_index=ii, var_ratio=config.var_ratio, device=dev),
-            model.trait_type == "binary"))
+    with profiling.span("scan.prepare"):
+        for i, model in enumerate(models):
+            cols, ii = _match_samples(seq.sample_id, model.sample_id)
+            if i == 0:
+                cols0 = cols
+            elif not ((cols is None and cols0 is None) or
+                      (cols is not None and cols0 is not None and
+                       np.array_equal(cols, cols0))):
+                raise ValueError(
+                    "assoc_spa_multi: all models must select the same GDS "
+                    "sample columns (fit them on one sample universe, or "
+                    "scan separately with assoc_spa)")
+            scan_models.append((model.scan_model(
+                sample_index=ii, var_ratio=config.var_ratio, device=dev),
+                model.trait_type == "binary"))
     # the packed route needs hard calls; a model over a subset of the GDS
     # samples keeps it (the blocks are gathered before the pack)
     dense = not (config.use_packed and seq.has_genotype()
@@ -233,7 +227,8 @@ def _scan_models(seq: SeqData, models: list, config: ScanConfig,
         packed_2bit=config.packed_2bit, sparse=_static_sparse(config),
         spa_compact=config.spa_compact, cols=cols0, instrument=instrument,
         dense=dense, mesh=mesh)
-    return [_with_meta(seq, r) for r in res]
+    with profiling.span("scan.tables"):
+        return [_with_meta(seq, r) for r in res]
 
 
 def _static_sparse(config: ScanConfig) -> bool:
@@ -263,6 +258,7 @@ def _with_meta(seq: SeqData, res: dict) -> dict:
     return tab
 
 
+@profiling.entry("scan.call")
 def assoc_spa_multi(gdsfile, modobjs, config: ScanConfig = ScanConfig(),
                     res_savefn: str = "", verbose: bool = False,
                     variant_mask: Optional[np.ndarray] = None, mesh=None,
@@ -316,8 +312,9 @@ def assoc_spa_multi(gdsfile, modobjs, config: ScanConfig = ScanConfig(),
                                res_compress=res_compress)
             results.extend(tabs)
         return results
-    models = [NullModel.load(m) for m in modobjs]
-    seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
+    with profiling.span("scan.prepare"):
+        models = [NullModel.load(m) for m in modobjs]
+        seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
     if verbose:
         kinds = ",".join(m.trait_type for m in models)
         print(f"SPA association scan x{len(models)} models ({kinds}) on "
@@ -417,38 +414,37 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
     not split by variant, as in the JAX package).
 
     ``instrument``: optional dict; per-block wall-times land in lists
-    under ``decode_s`` (GDS block read, decode thread), ``pack_s`` (2-bit
-    pack, pack thread), ``upload_s`` (host-to-device copy, upload thread),
-    ``dispatch_s`` (phase-1 enqueue of every model, main thread),
-    ``drain_s`` (result sync + readback), ``bytes`` (payload sizes),
-    ``gather_s`` (the sample gather inside ``pack_s``, when ``cols`` is
-    given), plus scalars ``spa_s`` (phase-2 time, the flushes inside
-    ``drain_s`` included) and ``spa_n`` (variants refined, all models).
-    Stages overlap, so sums exceed wall-clock by design.
+    under ``decode_s`` (GDS block read, decode thread) and ``gather_s``
+    (the sample gather, pack thread, when ``cols`` is given), plus scalars
+    ``spa_s`` (phase-2 time, all models) and ``spa_n`` (variants refined,
+    all models).  Stages overlap, so sums exceed wall-clock by design.
+    They are the seconds of the spans ``scan.decode``, ``scan.gather``
+    and ``scan.spa`` and the counter ``scan.spa_rows``
+    (``utils/profiling.py``), which record the rest of the pipeline
+    under a profiler.
     """
-    import time as _time
     if instrument is not None:
-        for k in ("decode_s", "pack_s", "upload_s", "dispatch_s",
-                  "drain_s", "bytes", "gather_s"):
+        for k in ("decode_s", "gather_s"):
             instrument.setdefault(k, [])
         instrument.setdefault("spa_s", 0.0)
         instrument.setdefault("spa_n", 0)
     P = len(models)
-    if dense:
-        kerns = [score_stats_binary if b else score_stats_quant
-                 for _sm, b in models]
-        states = [sm for sm, _b in models]
-    else:
-        kerns = [score_stats_binary_packed if b else score_stats_quant_packed
-                 for _sm, b in models]
-        states = [pack_scan_model(sm) for sm, _b in models]
-    if mesh is None:
-        on = {device: states}          # the models' state by device
-    else:
-        from ..parallel.mesh import replicate, shard_variant_batch
-        copies = [replicate(mesh, st) for st in states]
-        on = {d: [c[d] for c in copies] for d in mesh.distinct()}
-        sparse = False
+    with profiling.span("scan.prepare"):
+        if dense:
+            kerns = [score_stats_binary if b else score_stats_quant
+                     for _sm, b in models]
+            states = [sm for sm, _b in models]
+        else:
+            kerns = [score_stats_binary_packed if b
+                     else score_stats_quant_packed for _sm, b in models]
+            states = [pack_scan_model(sm) for sm, _b in models]
+        if mesh is None:
+            on = {device: states}          # the models' state by device
+        else:
+            from ..parallel.mesh import replicate, shard_variant_batch
+            copies = [replicate(mesh, st) for st in states]
+            on = {d: [c[d] for c in copies] for d in mesh.distinct()}
+            sparse = False
     rows_idx = []
     outs = [[] for _ in range(P)]
     spa_G = [[] for _ in range(P)]      # flagged variants for phase 2
@@ -461,31 +457,29 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
     def _decoded(raw):
         it = iter(raw)
         while True:
-            t0 = _time.perf_counter()
-            try:
-                idx, G = next(it)            # GDS decode happens here
-            except StopIteration:
-                break
-            if instrument is not None:
-                instrument["decode_s"].append(_time.perf_counter() - t0)
+            with profiling.span("scan.decode", instrument,
+                                "decode_s") as sp:
+                try:
+                    idx, G = next(it)        # GDS decode happens here
+                except StopIteration:
+                    sp.discard()
+                    break
             yield idx, G
 
     def _packed_stage(it):
         for idx, G in it:
-            t0 = _time.perf_counter()
-            G = np.asarray(G, np.float64 if dense else np.int8)
-            if cols is not None:
-                G = np.take(G, cols, axis=1)         # the models' samples
-                if instrument is not None:
-                    instrument["gather_s"].append(_time.perf_counter() - t0)
-            # [(rows, payload)]: f64/f32 dosages, uint8 [n, ceil(N/4)],
-            # the int8 codes, or the sparse split
-            parts = [(np.arange(len(idx)), _shrink_f32(G))] if dense else \
-                _packed_parts(G) if sparse else \
-                [(np.arange(len(idx)),
-                  _pack2_block(G) if packed_2bit else G)]
-            if instrument is not None:
-                instrument["pack_s"].append(_time.perf_counter() - t0)
+            with profiling.span("scan.pack"):
+                G = np.asarray(G, np.float64 if dense else np.int8)
+                if cols is not None:
+                    with profiling.span("scan.gather", instrument,
+                                        "gather_s"):
+                        G = np.take(G, cols, axis=1)  # the models' samples
+                # [(rows, payload)]: f64/f32 dosages, uint8 [n,
+                # ceil(N/4)], the int8 codes, or the sparse split
+                parts = [(np.arange(len(idx)), _shrink_f32(G))] if dense \
+                    else _packed_parts(G) if sparse else \
+                    [(np.arange(len(idx)),
+                      _pack2_block(G) if packed_2bit else G)]
             yield idx, G, parts
 
     def _upload(rows, pl):
@@ -498,27 +492,18 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
 
     def _uploaded(it):
         for idx, G, parts in it:
-            t0 = _time.perf_counter()
-            dev_parts = [part for rows, pl in parts
-                         for part in _upload(rows, pl)]
-            if instrument is not None:
-                instrument["upload_s"].append(_time.perf_counter() - t0)
-                instrument["bytes"].append(sum(
-                    sum(x.nbytes for x in pl) if isinstance(pl, tuple)
-                    else pl.nbytes for _, pl in parts))
+            with profiling.span("scan.upload"):
+                dev_parts = [part for rows, pl in parts
+                             for part in _upload(rows, pl)]
             yield idx, G, dev_parts
 
     block_iter = _prefetch_blocks(
         _uploaded(_prefetch_blocks(
-            _packed_stage(_prefetch_blocks(
-                _decoded(block_iter),
-                name="decode", instrument=instrument)),
-            name="pack", instrument=instrument)),
-        name="upload", instrument=instrument)
+            _packed_stage(_prefetch_blocks(_decoded(block_iter))))),
+        wait="scan.wait_block")
 
     def _drain_one():
         nonlocal row0, spa_bytes
-        t_dr = _time.perf_counter()
         idx, G, results = window.popleft()
         n = len(idx)
         n_valid = 0
@@ -551,65 +536,75 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
         # grow past the budget
         if spa_bytes >= SPA_FLUSH_BYTES:
             _flush_spa()
-        if instrument is not None:
-            instrument["drain_s"].append(_time.perf_counter() - t_dr)
 
     def _flush_spa():
         nonlocal spa_bytes
         spa_bytes = 0
         for p in range(P):
             if spa_G[p]:
-                _flush_model(p)
+                with profiling.span("scan.spa", instrument, "spa_s"):
+                    _flush_model(p)
 
     def _flush_model(p):
-        t_spa = _time.perf_counter()
         scan_model = models[p][0]
-        Gs = np.concatenate(spa_G[p], axis=0)
-        rows = np.concatenate(spa_rows[p])
-        spa_G[p].clear()
-        spa_rows[p].clear()
-        if instrument is not None:
-            instrument["spa_n"] += len(rows)
-        # compact batches grouped by nonzero count, so rare variants run
-        # the compacted CGF even when the flagged set mixes in common ones
-        if spa_compact and len(rows) > 1:
-            order = np.argsort(_spa_nnz(Gs), kind="stable")
-            Gs, rows = Gs[order], rows[order]
-        N = Gs.shape[1]
-        caps = _spa_caps(Gs, spa_compact)
-
+        with profiling.span("scan.spa.sort"):
+            Gs = np.concatenate(spa_G[p], axis=0)
+            rows = np.concatenate(spa_rows[p])
+            spa_G[p].clear()
+            spa_rows[p].clear()
+            # compact batches grouped by nonzero count, so rare variants
+            # run the compacted CGF even when the flagged set mixes in
+            # common ones
+            if spa_compact and len(rows) > 1:
+                order = np.argsort(_spa_nnz(Gs), kind="stable")
+                Gs, rows = Gs[order], rows[order]
+            N = Gs.shape[1]
+            caps = _spa_caps(Gs, spa_compact)
+        profiling.count("scan.spa_rows", len(rows), instrument, "spa_n")
         codes = np.issubdtype(Gs.dtype, np.integer)
 
         def _spa_payloads():
             # payload build + upload in the prefetch worker, like phase 1;
             # codes ship 2-bit packed (N/4 bytes per variant)
             for s, e in _spa_batches(caps, SPA_BATCH):
-                Gi = Gs[s:e]
-                payload = _pack2_block(Gi) if codes else _shrink_f32(Gi)
-                yield rows[s:e], _to_device(payload, device), int(caps[s])
+                with profiling.span("scan.spa.payload"):
+                    Gi = Gs[s:e]
+                    payload = _pack2_block(Gi) if codes else _shrink_f32(Gi)
+                    item = rows[s:e], _to_device(payload, device), \
+                        int(caps[s])
+                yield item
 
-        for r, Gb, cap in _prefetch_blocks(_spa_payloads()):
-            res = spa_refine_binary(scan_model, Gb, cap=cap,
-                                    packed_n=N if codes else 0)
-            a = torch.stack([res[0], res[1].to(torch.float64), res[2],
-                             res[3]]).cpu().numpy()
+        for r, Gb, cap in _prefetch_blocks(_spa_payloads(),
+                                           wait="scan.spa.wait_payload"):
+            profiling.count("scan.spa_batches")
+            with profiling.span("scan.spa.refine"):
+                res = spa_refine_binary(scan_model, Gb, cap=cap,
+                                        packed_n=N if codes else 0)
+                a = torch.stack([res[0], res[1].to(torch.float64), res[2],
+                                 res[3]]).cpu().numpy()
             spa_out[p].append((r, a[0], a[1] != 0, a[2], a[3]))
-        if instrument is not None:
-            instrument["spa_s"] += _time.perf_counter() - t_spa
 
     for idx, G, parts in block_iter:
-        t_di = _time.perf_counter()
-        results = [[(rows, stack_stats(kerns[p](on[d][p], params, payload)))
-                    for rows, d, payload in parts] for p in range(P)]
-        if instrument is not None:
-            instrument["dispatch_s"].append(_time.perf_counter() - t_di)
+        profiling.count("scan.blocks")
+        with profiling.span("scan.dispatch"):
+            results = [[(rows, stack_stats(kerns[p](on[d][p], params,
+                                                    payload)))
+                        for rows, d, payload in parts] for p in range(P)]
         window.append((idx, G, results))
         if len(window) >= DEPTH:
-            _drain_one()
+            with profiling.span("scan.drain"):
+                _drain_one()
     while window:
-        _drain_one()
+        with profiling.span("scan.drain"):
+            _drain_one()
     _flush_spa()  # phase 2 over the remaining flagged subsets
+    with profiling.span("scan.tables"):
+        return _tables(models, rows_idx, outs, spa_out)
 
+
+def _tables(models, rows_idx, outs, spa_out) -> list:
+    """The scan core's tables: each model's phase-1 columns over the
+    tested rows, with its phase-2 refinements in place."""
     idx_all = np.concatenate(rows_idx) if rows_idx else np.empty(0, int)
     tabs = []
     for p, (_sm, binary) in enumerate(models):

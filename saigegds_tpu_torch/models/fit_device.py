@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..ops.pcg import pcg_solve
+from ..utils import profiling
 
 
 class DeviceFit(NamedTuple):
@@ -93,6 +94,7 @@ def _stack_cols(A: torch.Tensor) -> torch.Tensor:
     return A.permute(1, 0, 2).reshape(N, P * C)
 
 
+@profiling.spanned("fit.pcg")
 def _pcg_multi(op, W, tau, B, tol_pcg, maxiter_pcg, count=None):
     """Solve P lanes' systems in ONE per-column PCG: ``W`` [P, N], ``tau``
     [P, 2], ``B`` [P, N, C] -> [P, N, C].  ``count`` (a one-element list)
@@ -149,6 +151,7 @@ class _Probes:
         t0 = torch.einsum("nr,pnr->pr", Uc, PU)
         return t1.cpu().numpy(), t0.cpu().numpy()
 
+    @profiling.spanned("fit.traces")
     def traces(self, solve, Si_X, cov, Si_U, cutoff, quant=False):
         """Per-lane CV-escalated traces from the first ``nrun`` probes
         solved (``Si_U`` [L, N, nrun]); ``solve(lanes, U_cols)`` solves 10
@@ -315,10 +318,12 @@ def _grouped(probes: _Probes, P: int, N: int, K: int, cols: int,
         iterations=torch.empty(P, dtype=torch.int64, device=dev),
         converged=torch.empty(P, dtype=torch.bool, device=dev),
         trace_capped=torch.empty(P, dtype=torch.bool, device=dev))
-    groups = _lane_groups(P, N, K, cols, probes.U.device)
+    with profiling.span("fit.lane_groups"):
+        groups = _lane_groups(P, N, K, cols, probes.U.device)
     its = 0
     for g in groups:
-        fit = run(g)
+        with profiling.span("fit.group"):
+            fit = run(g)
         for k in _FIELDS:
             getattr(out, k)[g].copy_(getattr(fit, k))
         its += fit.pcg_iterations
@@ -348,6 +353,7 @@ def _binary_lanes(op, probes: _Probes, Y, Xl, tau_init, eta_init, tol,
     def pcg(W, tau, B):
         return _pcg_multi(op, W, tau, B, tol_pcg, maxiter_pcg, its)
 
+    @profiling.spanned("fit.irls")
     def get_coeff(ix, tau, eta, alpha):
         """Inner IRLS (get_coeff, :766-813) of lanes ``ix``, lock-step."""
         L = len(ix)
@@ -382,6 +388,7 @@ def _binary_lanes(op, probes: _Probes, Y, Xl, tau_init, eta_init, tol,
             done[a] = delta < 0.1
         return (eta, alpha, *aux)
 
+    @profiling.spanned("fit.ai_step")
     def ai_update(ix, tau, Yw, W, cov, Si_Y, Si_X, moment: bool):
         """AI-REML tau step (:816-890) of lanes ``ix``, one batched PCG
         for APY and the first ``nrun`` probes of every lane."""
@@ -493,6 +500,7 @@ def _quant_lanes(op, probes: _Probes, Y, Xl, tau_init, tol, tol_pcg,
         t = lambda a: torch.as_tensor(a, dtype=f64, device=dev)
         return PY, APY, t(trace0), t(trace1), t(capped).bool()
 
+    @profiling.spanned("fit.ai_step")
     def ai_step(ix, tau):
         alpha, eta, cov, Si_Y, Si_X, Si_U = coeff(ix, tau)
         PY, APY, trace0, trace1, capped = scores(ix, tau, cov, Si_Y, Si_X,
@@ -558,6 +566,7 @@ def _quant_lanes(op, probes: _Probes, Y, Xl, tau_init, tol, tol_pcg,
                      trace_capped=capped, pcg_iterations=its[0])
 
 
+@profiling.entry("fit.call")
 def fit_glmm_binary_device_multi(op, Y, X, tau_init, eta_init, U, tol,
                                  tol_pcg, maxiter: int = 20,
                                  maxiter_pcg: int = 500,
@@ -607,6 +616,7 @@ def _binary_multi(op, Y, X, tau_init, eta_init, U, tol, tol_pcg,
     return _grouped(probes, P, N, K, 1 + max(K, probes.nrun), Y, run)
 
 
+@profiling.entry("fit.call")
 def fit_glmm_quant_device_multi(op, Y, X, tau_init, U, tol, tol_pcg,
                                 maxiter: int = 20, maxiter_pcg: int = 500,
                                 nrun: int = 30,

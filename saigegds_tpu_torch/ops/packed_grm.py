@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from . import grm_kernel
+from ..utils import profiling
 
 N_SLICES = 8   # 7 bits/slice -> ~56-bit effective mantissa (full f64)
 
@@ -266,6 +267,7 @@ class Packed2GRM:
     def miss_samp(self) -> torch.Tensor:
         return self.miss.samp
 
+    @profiling.entry()
     def matvec(self, b: torch.Tensor) -> torch.Tensor:
         """GRM @ b for b [N] or [N, R] f64 on this operator's device."""
         self.matvecs += 1
@@ -437,6 +439,7 @@ def ranges_t(stores, dm: torch.Tensor, out: torch.device) -> torch.Tensor:
     return rows[0] if len(rows) == 1 else torch.cat(rows)
 
 
+@profiling.spanned("grm.product")
 def sharded_product(stores, af, inv, miss: MissingPairs,
                     b: torch.Tensor, wire=None) -> torch.Tensor:
     """GRM @ b over a store kept as contiguous sample ranges: the lead's
@@ -463,7 +466,14 @@ def sharded_product(stores, af, inv, miss: MissingPairs,
     integers, recombined with the slice weights in f64.  The missing-pair
     corrections are segment sums over the pair lists sorted at build time
     (:class:`MissingPairs`): deterministic on a card, and equal to the
-    ``index_add_`` form on the CPU bit for bit."""
+    ``index_add_`` form on the CPU bit for bit.
+
+    Under a profiler the product is the span ``grm.product``, and
+    consecutive device spans of four names split its work on the lead's
+    stream: ``grm.slice`` (the two slice decompositions), ``grm.kernels``
+    (B1, its layout kernel and B2, with the exchanges of ``wire``),
+    ``grm.corrections`` (the two missing-pair sums) and ``grm.combine``
+    (the f64 recombinations)."""
     squeeze = b.dim() == 1
     B = (b[:, None] if squeeze else b).to(torch.float64)
     lead = B.device
@@ -472,34 +482,47 @@ def sharded_product(stores, af, inv, miss: MissingPairs,
     S = N_SLICES
     RS = R * S
     Cpad = kernel_cols(R)
+    part = profiling.device_parts(lead)
 
     # pass 1: cv = Cm @ b (padded samples meet zero slice rows)
-    d, scale = _slice_i8(B, S)                        # [N, R, S]
-    d = d.reshape(N, RS)
+    with part("grm.slice"):
+        d, scale = _slice_i8(B, S)                    # [N, R, S]
+        d = d.reshape(N, RS)
     n_here = sum(n for _s, n in stores)
-    sent = wire.post_slices(R, d) if wire is not None else None
-    acc = ranges_fwd(stores, d[:n_here], Cpad, lead)[:, :RS]
-    if wire is not None:
-        acc = acc + wire.sum_partials(sent, M, RS).to(lead, torch.float64)
-    cv = torch.sum(acc.reshape(M, R, S) * _slice_weights(scale, S), dim=-1)
-
-    mv = torch.sum(B, dim=0)[None, :] - miss.per_variant(B)
-    gv = inv[:, None] * (cv - 2.0 * af[:, None] * mv)   # [M, R]
-
-    # pass 2: out = Cm' w1 - (sum(w2) - corr2), natural sample order
-    w1 = inv[:, None] * gv
-    w2 = 2.0 * af[:, None] * inv[:, None] * gv
-    d2, scale2 = _slice_i8(w1, S)                      # [M, R, S]
-    dm = d2.reshape(M, RS)
-    sent = wire.post_operand(dm) if wire is not None else None
-    rows = ranges_t(stores, _pad_cols(dm, Cpad), lead)[:, :RS]
-    if wire is not None:
-        rows = torch.cat([rows] + [r.to(lead, torch.float64)
-                                   for r in wire.gather_rows(sent, RS)])
-    out = torch.sum(rows.reshape(N, R, S) * _slice_weights(scale2, S),
-                    dim=-1)
-    out = (out - (torch.sum(w2, dim=0)[None, :] - miss.per_sample(w2))) / M
-    return out[:, 0] if squeeze else out
+    with part("grm.kernels"):
+        sent = wire.post_slices(R, d) if wire is not None else None
+        acc = ranges_fwd(stores, d[:n_here], Cpad, lead)[:, :RS]
+        if wire is not None:
+            acc = acc + wire.sum_partials(sent, M, RS).to(lead,
+                                                          torch.float64)
+    with part("grm.combine"):
+        cv = torch.sum(acc.reshape(M, R, S) * _slice_weights(scale, S),
+                       dim=-1)
+    with part("grm.corrections"):
+        corr1 = miss.per_variant(B)
+    with part("grm.combine"):
+        mv = torch.sum(B, dim=0)[None, :] - corr1
+        gv = inv[:, None] * (cv - 2.0 * af[:, None] * mv)   # [M, R]
+        # pass 2: out = Cm' w1 - (sum(w2) - corr2), natural sample order
+        w1 = inv[:, None] * gv
+        w2 = 2.0 * af[:, None] * inv[:, None] * gv
+    with part("grm.slice"):
+        d2, scale2 = _slice_i8(w1, S)                  # [M, R, S]
+        dm = d2.reshape(M, RS)
+    with part("grm.kernels"):
+        sent = wire.post_operand(dm) if wire is not None else None
+        rows = ranges_t(stores, _pad_cols(dm, Cpad), lead)[:, :RS]
+        if wire is not None:
+            rows = torch.cat([rows] + [r.to(lead, torch.float64)
+                                       for r in wire.gather_rows(sent, RS)])
+    with part("grm.combine"):
+        out = torch.sum(rows.reshape(N, R, S) * _slice_weights(scale2, S),
+                        dim=-1)
+    with part("grm.corrections"):
+        corr2 = miss.per_sample(w2)
+    with part("grm.combine"):
+        out = (out - (torch.sum(w2, dim=0)[None, :] - corr2)) / M
+        return out[:, 0] if squeeze else out
 
 
 def rank_product(stores, wire, R: int, M: int):

@@ -25,6 +25,8 @@ in every route and are compared only for presence and counts, as in
 ``test_torch_scan.py``.
 """
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -35,6 +37,7 @@ from _torch_synth import jax_null_model, jax_quant_null_model, \
 import saigegds_tpu
 from saigegds_tpu.io.gds_write import write_dosage_gds, write_seqarray_gds
 import saigegds_tpu_torch as sg
+from saigegds_tpu_torch.assoc import single
 from saigegds_tpu_torch.assoc.single import _shrink_f32
 
 RTOL = 1e-10
@@ -183,9 +186,10 @@ def test_subset_model_dense_equals_packed_gather(data, kind, tmp_path):
     _assert_match(packed, _jax(path, jm), hard_calls=True)
 
 
-def test_f32_shipping(data):
+def test_f32_shipping(data, monkeypatch):
     """Integer-valued blocks ship f32 and fractional ones f64; both widen
-    to the same f64 values."""
+    to the same f64 values.  The bytes shipped are read where phase 1
+    uploads each block (``_upload`` calling ``_to_device``)."""
     ds = data["dosages"]
     assert _shrink_f32(ds[INT_BLOCK]).dtype == np.float32
     assert _shrink_f32(ds[:BLOCK]).dtype == np.float64
@@ -199,11 +203,18 @@ def test_f32_shipping(data):
         assert _shrink_f32(G) is G
         G[-1, -1] = 0.5
         np.testing.assert_array_equal(_shrink_f32(G), G)
-    inst = {}
-    _port(data["ds"], data["models"]["binary"], instrument=inst)
+    shipped, real = [], single._to_device
+
+    def to_device(a, device):
+        if sys._getframe(1).f_code.co_name == "_upload":
+            shipped.append(a.nbytes)
+        return real(a, device)
+
+    monkeypatch.setattr(single, "_to_device", to_device)
+    _port(data["ds"], data["models"]["binary"])
     rows = [min(BLOCK, N_VARIANTS - s) for s in range(0, N_VARIANTS, BLOCK)]
     want = [r * N_SAMPLES * (4 if i == 1 else 8) for i, r in enumerate(rows)]
-    assert inst["bytes"] == want
+    assert shipped == want
 
 
 @pytest.mark.parametrize("kind", ["binary", "quant"])
