@@ -39,6 +39,10 @@ and prints no result line):
    it), each beside ``torch._int_mm`` on
    the store decoded beforehand (B1: against the slices; B2: the decoded
    store's transpose against its operand), a contraction-only yardstick;
+   the GRM product's slice kernels (``grm_kernel.slice_i8``: the column
+   max, then the slices) at N = 430,000 and R = 31, 103 (the fit's
+   average) and 248 (its widest), row-major, and on a transposed [N, 8]
+   view, slices and scales bit-equal, beside their 24 N R bytes;
    B4 (``indicator_dot``, int8 codes) at 37 x 1,031 and at the aggregate
    tests' single-variant batch (B = 256, N = 430,000) at C = 96 and 384,
    B3 and B4 each beside ``torch._int_mm`` (cuBLAS int8 GEMM) on the
@@ -296,6 +300,10 @@ GRM_WIDTHS = (16, 32, 64, 128, 256, 384, 768, 2048)   # C of B1 and B2
 #                 256 looped, and the widest C the PheWAS fit has run
 GRM_MAIN = len(GRM_SHAPES) + GRM_WIDTHS.index(64)   # the JSON line's shape:
 #                                            the fit's most frequent C
+SLICE_COLS = (31, 103, 248)   # R of the slice kernels at N = N_SAMPLES: the
+#                 card-vs-CPU product's, the fit's average, its widest
+SLICE_T = 8             # and a transposed [N, 8] view (the fitter's PY.T)
+SLICE_MAIN = SLICE_COLS.index(103)      # the JSON line's shape
 MV_ROWS, MV_COLS = 1024, 31  # the card-vs-CPU GRM product
 PROFILE_COLS = 30       # columns of the profiled full-width GRM product
 RTOL_MV = 1e-12         # card vs CPU GRM product (f64 atomics reorder)
@@ -467,6 +475,13 @@ def expect_launches(what: str, want: dict):
     return got
 
 
+def packed_model_builds(payloads: dict) -> int:
+    """Slice launches of an aggregate run: its packed scan model is built
+    at its first single-variant packed payload, once (one slice call)."""
+    return int(bool(payloads.get("single_sparse", 0)
+                    + payloads.get("single_2bit", 0)))
+
+
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take: the larger of the bytes moved
     at the device memory rate and the int8 operations at the tensor-core
@@ -479,13 +494,15 @@ def bound(nbytes: float, ops: float) -> dict:
 def compare_and_time(label: str, kern, plain, runs: int, least: dict,
                      plain_runs: int = 3, exact=None) -> dict:
     """Kernel against its plain version on the same tensors (bit-equal,
-    and equal to ``exact`` when given), then the median times of both,
-    in turns: plain, kernel, kernel, plain, beside ``least`` (`bound`)."""
+    each tensor where they return a tuple, and equal to ``exact`` when
+    given), then the median times of both, in turns: plain, kernel,
+    kernel, plain, beside ``least`` (`bound`)."""
     import torch
     got, want = kern(), plain()
     torch.cuda.synchronize()
-    err = 0.0 if torch.equal(got, want) else \
-        float((got.double() - want.double()).abs().max())
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    err = max(0.0 if torch.equal(g, w) else
+              float((g.double() - w.double()).abs().max()) for g, w in pairs)
     if err or (exact is not None and not torch.equal(got, exact)):
         raise AssertionError(f"{label} disagrees with its plain version "
                              f"(max abs err {err}) or with its input")
@@ -748,6 +765,28 @@ def check_grm(packed, N: int, C: int, gen, decoded=None) -> dict:
         for name, ms in lib.items():
             out[name]["library_ms"] = ms
     return out
+
+
+def check_slice(x, label: str) -> dict:
+    """The slice kernels on the card vs the plain chain on the same f64
+    [N, R] ``x``: slices and scales bit-equal; the bound reads ``x`` twice
+    (the column max, then the slices) and writes 8 bytes an element."""
+    from saigegds_tpu_torch.ops import grm_kernel
+    from saigegds_tpu_torch.ops.packed_grm import N_SLICES, _slice_i8_plain
+
+    N, R = x.shape
+    return compare_and_time(
+        f"slice_i8 N={N} R={R} {label}", lambda: grm_kernel.slice_i8(x),
+        lambda: _slice_i8_plain(x, N_SLICES), 5, bound(24 * N * R, 0))
+
+
+def slice_input(N: int, R: int, device, gen):
+    """f64 [N, R] of normal values at column scales 1e-5 to 1e5, as the
+    products' operands spread."""
+    import torch
+    x = torch.randn(N, R, dtype=torch.float64, device=device, generator=gen)
+    return x * 10.0 ** (torch.rand(R, dtype=torch.float64, device=device,
+                                   generator=gen) * 10 - 5)
 
 
 WGMMA_SOURCES = ("plane_dot", "indicator_dot_2bit", "indicator_dot")
@@ -1571,7 +1610,8 @@ def aggregate(model, y: np.ndarray, work: str) -> dict:
     counts = expect_launches("ACAT-O", {
         "decode_codes": n_sparse,
         "indicator_dot": pay.get("single_sparse", 0),
-        "indicator_dot_2bit": pay.get("single_2bit", 0)})
+        "indicator_dot_2bit": pay.get("single_2bit", 0),
+        "slice_i8": packed_model_builds(pay)})
     if not (counts["decode_codes"] and counts["indicator_dot"]):
         raise AssertionError(f"B4 or B5 never launched: payloads {pay}")
     pcols = [c for c in tab if c.startswith("pval")]
@@ -1646,7 +1686,8 @@ def quant_burden(model, gds: str, units) -> dict:
     wall = time.perf_counter() - t0
     pay = inst["payloads"]
     counts = expect_launches("the quantitative burden test", {
-        "decode_codes": pay.get("burden_sparse", 0)})
+        "decode_codes": pay.get("burden_sparse", 0),
+        "slice_i8": packed_model_builds(pay)})
     if not counts["decode_codes"]:
         raise AssertionError(f"B5 never launched: payloads {pay}")
     if inst.get("spa_n") or any(c.startswith(("p.norm", "cvg"))
@@ -1878,7 +1919,8 @@ def ds_gene_tests(gds: str, model, model_q):
         counts = expect_launches(f"{name} over DS units", {
             "decode_codes": pay.get("single_sparse", 0),
             "indicator_dot": pay.get("single_sparse", 0),
-            "indicator_dot_2bit": pay.get("single_2bit", 0)})
+            "indicator_dot_2bit": pay.get("single_2bit", 0),
+            "slice_i8": packed_model_builds(pay)})
         if name == "ACAT-O" and not (inst.get("rows_packed")
                                      and sum(counts.values())):
             raise AssertionError(f"no DS row went the packed way: {pay}")
@@ -1935,7 +1977,7 @@ def r_files(model, gds7: str, work: str):
         reset_launches()
         got, _, _ = scan(gds7, back, "cuda", variant_mask=mask)
         expect_launches(f"the scan from the {ext} model",
-                        {"indicator_dot_2bit": 1})
+                        {"indicator_dot_2bit": 1, "slice_i8": 1})
         for c in want:
             if not np.array_equal(got[c], want[c]):
                 raise AssertionError(f"the scan from the {ext} model "
@@ -2368,7 +2410,8 @@ def phewas_fit(gds: str, data: dict, one_fit: dict, gds_s: str,
     reserved = torch.cuda.max_memory_reserved()
     total = torch.cuda.mem_get_info(device)[1]
     counts = expect_launches("the PheWAS fit", {
-        "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"]})
+        "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"],
+        "slice_i8": 2 * inst["matvecs"]})
     if len(ingests) != 1:
         raise AssertionError(f"the PheWAS fit ingested {len(ingests)} times")
     held_widths("the PheWAS fit", inst["product_widths"])
@@ -2496,7 +2539,8 @@ def phewas_scan(gds7: str, models: list, model_q, scan7: dict,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = expect_launches("the PheWAS scan",
-                             {"indicator_dot_2bit": P * n_blocks})
+                             {"indicator_dot_2bit": P * n_blocks,
+                              "slice_i8": P})
     if len(inst["decode_s"]) != n_blocks or \
             len(inst["gather_s"]) != n_blocks:
         raise AssertionError("the PheWAS scan did not decode each block "
@@ -2555,7 +2599,7 @@ def phewas_scan(gds7: str, models: list, model_q, scan7: dict,
     wall = time.perf_counter() - t0
     got = expect_launches("the PheWAS scan's sparse route", {
         "decode_codes": P * n_sparse, "indicator_dot": P * n_sparse,
-        "indicator_dot_2bit": P * (len(parts) - n_sparse)})
+        "indicator_dot_2bit": P * (len(parts) - n_sparse), "slice_i8": P})
     worst_s = compare_tables(static[0], cpu)
     worst_l = max(compare_tables(tab, st) for tab, st in zip(tabs, static))
     log(f"the first block on the sparse route (transport_policy=\"static\"), "
@@ -2597,7 +2641,8 @@ def gxg_phase(gds_fit: str, gds7: str, tab7: dict, data: dict, gds_s: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = expect_launches("GxG, batched", {
-        "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"]})
+        "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"],
+        "slice_i8": 2 * inst["matvecs"]})
     p = tab["pval"]
     if not (np.isfinite(p).all() and ((p >= 0) & (p <= 1)).all()):
         raise AssertionError("GxG batched: p-values outside [0, 1]")
@@ -2628,7 +2673,8 @@ def gxg_phase(gds_fit: str, gds7: str, tab7: dict, data: dict, gds_s: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     expect_launches("GxG, default start", {"plane_dot_fwd": inst["matvecs"],
-                                           "plane_dot_t": inst["matvecs"]})
+                                           "plane_dot_t": inst["matvecs"],
+                                           "slice_i8": 2 * inst["matvecs"]})
     p = first["pval"]
     if not (np.isfinite(p).all() and ((p >= 0) & (p <= 1)).all()):
         raise AssertionError("GxG default start: p-value outside [0, 1]")
@@ -2728,7 +2774,8 @@ def mesh_phase(gds_s: str, data_s: dict, model, op4, gds7: str,
         raise AssertionError(f"the mesh fit built a {type(h).__name__}")
     expect_launches("the sharded fit", {
         "plane_dot_fwd": MESH_SHARDS * inst_m["matvecs"],
-        "plane_dot_t": MESH_SHARDS * inst_m["matvecs"]})
+        "plane_dot_t": MESH_SHARDS * inst_m["matvecs"],
+        "slice_i8": 2 * inst_m["matvecs"]})
     same_fit("the sharded fit", model_m, inst_m, model1, inst1)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"sharded fit on the card ({FIT_SMALL[0]} x {FIT_SMALL[1]}, "
@@ -2759,7 +2806,8 @@ def mesh_phase(gds_s: str, data_s: dict, model, op4, gds7: str,
             reset_launches()
             got = op.matvec(b)
             expect_launches(f"one sharded product ({name}, R = {R})", {
-                "plane_dot_fwd": MESH_SHARDS, "plane_dot_t": MESH_SHARDS})
+                "plane_dot_fwd": MESH_SHARDS, "plane_dot_t": MESH_SHARDS,
+                "slice_i8": 2})
             if not torch.equal(got, want):
                 raise AssertionError(f"sharded product ({name}, R = {R}) "
                                      f"differs from the unsharded one")
@@ -2779,7 +2827,8 @@ def mesh_phase(gds_s: str, data_s: dict, model, op4, gds7: str,
     tab, inst, wall = scan(gds7, model, "cuda", mesh=mesh)
     n_blocks = -(-N_VARIANTS // BLOCK)
     expect_launches("the sharded scan",
-                    {"indicator_dot_2bit": MESH_SHARDS * n_blocks})
+                    {"indicator_dot_2bit": MESH_SHARDS * n_blocks,
+                     "slice_i8": 1})
     for c in tab7:
         if not np.array_equal(tab[c], tab7[c]):
             raise AssertionError(f"sharded scan: column {c} differs from "
@@ -2916,12 +2965,15 @@ def dist_phase(work: str, data: dict, model, fit4: dict, op4, data_s: dict,
             if got["inst"][k] != fit4[k]:
                 raise AssertionError(f"rank {r}: {k} {got['inst'][k]} "
                                      f"against phase 4's {fit4[k]}")
-        want_l = {"plane_dot_fwd": n, "plane_dot_t": n}
+        # the lead (rank 0) slices each product's operands, twice a product
+        want_l = {"plane_dot_fwd": n, "plane_dot_t": n,
+                  **({"slice_i8": 2 * n} if r == 0 else {})}
         if {k: v for k, v in got["fit_launches"].items() if v} != want_l:
             raise AssertionError(f"rank {r}: the fit's launches "
                                  f"{got['fit_launches']}, expected {want_l}")
         m = got["products"]
-        want_l = {"plane_dot_fwd": m, "plane_dot_t": m}
+        want_l = {"plane_dot_fwd": m, "plane_dot_t": m,
+                  **({"slice_i8": 2 * m} if r == 0 else {})}
         if {k: v for k, v in got["product_launches"].items() if v} \
                 != want_l:
             raise AssertionError(f"rank {r}: the products' launches "
@@ -3249,6 +3301,10 @@ def main() -> int:
     grm_checks += [check_grm(store, N_SAMPLES, C, gen, decoded)
                    for C in GRM_WIDTHS]
     del store, decoded
+    slice_checks = [check_slice(slice_input(N_SAMPLES, R, device, gen),
+                                "row-major") for R in SLICE_COLS]
+    slice_checks.append(check_slice(
+        slice_input(SLICE_T, N_SAMPLES, device, gen).T, "transposed"))
     torch.cuda.empty_cache()
     b4_checks = [check_b4(B, N, C, device, gen) for B, N, C in B4_SHAPES]
     rare = make_rare_codes(max(B5_ROWS), N_SAMPLES, SEED + 4)
@@ -3281,7 +3337,8 @@ def main() -> int:
                               keep=kept4)
         fit4 = inst
         fit_launches = expect_launches("the fit", {
-            "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"]})
+            "plane_dot_fwd": inst["matvecs"], "plane_dot_t": inst["matvecs"],
+            "slice_i8": 2 * inst["matvecs"]})
         check_fit(model)
         if [f for f in os.listdir(work) if f.startswith("ck_fit")]:
             raise AssertionError("the fit left its checkpoint files")
@@ -3346,7 +3403,8 @@ def main() -> int:
         model_q, inst_q = fit(gds_fit, data, "cuda", quant=True)
         fitq_launches = expect_launches("the quantitative fit", {
             "plane_dot_fwd": inst_q["matvecs"],
-            "plane_dot_t": inst_q["matvecs"]})
+            "plane_dot_t": inst_q["matvecs"],
+            "slice_i8": 2 * inst_q["matvecs"]})
         held_widths("the quantitative fit", inst_q["product_widths"])
         check_fit(model_q)
         log(f"quantitative fit on the card: tau {model_q.tau.tolist()}, "
@@ -3392,7 +3450,8 @@ def main() -> int:
         tab, inst, wall = scan(gds, model, "cuda")
         n_blocks = -(-N_VARIANTS // BLOCK)
         scan_launches = expect_launches("the scan",
-                                        {"indicator_dot_2bit": n_blocks})
+                                        {"indicator_dot_2bit": n_blocks,
+                                         "slice_i8": 1})
         check_table(tab)
         refined = int(np.sum(tab["pval"] != tab["p.norm"]))
         if inst["spa_n"] == 0 or refined == 0:
@@ -3429,7 +3488,8 @@ def main() -> int:
         reset_launches()
         tab_i8, _, wall_i8 = scan(gds, model, "cuda", variant_mask=mask,
                                   packed_2bit=False)
-        expect_launches("the int8 route", {"indicator_dot": 1})
+        expect_launches("the int8 route", {"indicator_dot": 1,
+                                           "slice_i8": 1})
         worst_i8 = compare_tables(tab_i8, tab_cpu)
         log(f"first block on the card, int8 route: one B4 launch, the CPU's "
             f"table within {worst_i8:.3e} (limit {RTOL}), {wall_i8:.1f} s")
@@ -3442,7 +3502,8 @@ def main() -> int:
         reset_launches()
         tab, inst, wall = scan(gds, model_q, "cuda")
         scanq_launches = expect_launches("the quantitative scan",
-                                         {"indicator_dot_2bit": n_blocks})
+                                         {"indicator_dot_2bit": n_blocks,
+                                          "slice_i8": 1})
         check_table(tab)
         if inst["spa_n"] or "p.norm" in tab or "converged" in tab:
             raise AssertionError("a quantitative variant went to SPA, or "
@@ -3465,7 +3526,8 @@ def main() -> int:
         reset_launches()
         tab_i8, _, wall_i8 = scan(gds, model_q, "cuda", variant_mask=mask,
                                   packed_2bit=False)
-        expect_launches("the quantitative int8 route", {"indicator_dot": 1})
+        expect_launches("the quantitative int8 route",
+                        {"indicator_dot": 1, "slice_i8": 1})
         worst_i8 = compare_tables(tab_i8, tab_cpu)
         log(f"first block on the card, int8 route: one B4 launch, the CPU's "
             f"table within {worst_i8:.3e} (limit {RTOL}), {wall_i8:.1f} s")
@@ -3561,6 +3623,9 @@ def main() -> int:
         entry("plane_dot_t", "plane_dot",
               "saigegds_tpu/ops/pallas_grm.py:166",
               fit_launches["plane_dot_t"], grm_t, grm_t[GRM_MAIN]),
+        entry("slice_i8", "plane_dot", "saigegds_tpu/ops/packed_grm.py:140",
+              fit_launches["slice_i8"], slice_checks,
+              slice_checks[SLICE_MAIN]),
         entry("indicator_dot_2bit", "indicator_dot_2bit",
               "saigegds_tpu/ops/pallas_score.py:171",
               scan_launches["indicator_dot_2bit"], checks,

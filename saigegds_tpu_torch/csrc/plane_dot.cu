@@ -1,7 +1,8 @@
 // The two passes of the 2-bit GRM matvec on Hopper: fused planar 2-bit
 // decode + exact integer contraction against signed-7-bit slices on the
 // int8 tensor cores, through the warpgroup MMA (wgmma) with operand tiles
-// brought in by TMA.
+// brought in by TMA; and the slice decomposition that makes their f64
+// operands into those slices (slice_colmax_kernel, slice_i8_kernel below).
 //
 // Replaces saigegds_tpu/ops/pallas_grm.py::_fwd_kernel (kernel B1, the
 // Pallas body of plane_dot_fwd) and ::_t_kernel (kernel B2, the body of
@@ -423,6 +424,147 @@ fwd_rows_layout_kernel(const int8_t* __restrict__ rows,
 }
 
 // ---------------------------------------------------------------------------
+// The slices of the product's f64 operands (ops/packed_grm.py _slice_i8):
+// both passes' right-hand sides, b [N, R] and the weighted per-variant
+// vectors [M, R].  No Pallas kernel did this (the JAX package leaves it to
+// XLA's fusion); the plain PyTorch chain takes about fifty elementwise
+// passes over [n, R] f64.  Per column r, scale[r] = max_i |x[i, r]| (1
+// where that is not above 0), and element (i, r) splits into 8 signed
+// 7-bit slices, int8 [n, R, 8]:
+//
+//   rem = x / scale;  8 times:  d = rint(rem * 64),  rem = (rem - d / 64) * 128
+//
+// Apart from the one division every step is exact in f64 (|rem| <= 1: a
+// scaling by a power of two, or a subtraction whose result is a multiple of
+// the ulp of rem and at most 1/128), and rint rounds half to even as
+// torch.round does, so the bytes equal the plain chain's.  Two kernels:
+// the column max, on |x| as a bit pattern (unsigned order is the order of
+// non-negative doubles, with NaN above infinity, as torch.amax propagates
+// it), each block's maxima joined by one atomicMax per column (exact and
+// independent of order); then the slices, each element's 8 bytes as one
+// 8-byte word.  Bound by bytes: x read twice and 8 bytes written per
+// element, 24 n R bytes (0.32 ms at n = 430,000, R = 103).  x may have any
+// strides: the lanes of a warp run along the axis of the smaller stride
+// (the columns of a row-major matrix, the rows of a transposed one), so
+// that the reads coalesce, and the warps and blocks along the other.
+constexpr int SLICE_LANES = 32;
+constexpr int SLICE_WARPS = 8;
+constexpr int SLICE_BLOCKS_PER_SM = 8;          // 2,048 threads
+constexpr double ROUND_EVEN = 6755399441055744.0;   // 1.5 * 2^52
+
+__device__ __forceinline__ unsigned long long abs_bits(double v) {
+  return static_cast<unsigned long long>(__double_as_longlong(v)) &
+         0x7fffffffffffffffull;
+}
+
+__device__ __forceinline__ unsigned long long umax(unsigned long long a,
+                                                   unsigned long long b) {
+  return a > b ? a : b;
+}
+
+// The column's scale from its max |x| as bits: the max, or 1 where it is
+// not above 0 (zero, or NaN).
+__device__ __forceinline__ double column_scale(unsigned long long bits) {
+  const double m = __longlong_as_double(static_cast<long long>(bits));
+  return m > 0.0 ? m : 1.0;
+}
+
+// The 8 slices of v at scale s, slice k in byte k of the word.  With
+// |rem * 64| <= 64, adding 1.5 * 2^52 rounds it to an integer d half to
+// even, held in the low bits of the sum: its low byte is d as int8.
+__device__ __forceinline__ unsigned long long slice_word(double v, double s) {
+  double rem = __ddiv_rn(v, s);
+  unsigned long long word = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const double t = __dadd_rn(__dmul_rn(rem, 64.0), ROUND_EVEN);
+    const double d = __dsub_rn(t, ROUND_EVEN);
+    word |= static_cast<unsigned long long>(__double2loint(t) & 0xff)
+            << (8 * k);
+    rem = __dmul_rn(__dsub_rn(rem, __dmul_rn(d, 1.0 / 64.0)), 128.0);
+  }
+  return word;
+}
+
+// amax[r] = max(amax[r], bits of max |x[i, r]|) over the block's rows of
+// its 32-column tile (blockIdx.y).  LANE_ROWS: lanes run along the rows.
+template <bool LANE_ROWS>
+__global__ void __launch_bounds__(SLICE_LANES * SLICE_WARPS)
+slice_colmax_kernel(const double* __restrict__ x, long long n, int R,
+                    long long si, long long sr,
+                    unsigned long long* __restrict__ amax) {
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int c0 = blockIdx.y * SLICE_LANES;
+  if (!LANE_ROWS) {
+    __shared__ unsigned long long part[SLICE_WARPS][SLICE_LANES];
+    const int c = c0 + lane;
+    unsigned long long m = 0;
+    if (c < R) {
+      const double* col = x + c * sr;
+#pragma unroll 4
+      for (long long i = (long long)blockIdx.x * SLICE_WARPS + warp; i < n;
+           i += (long long)gridDim.x * SLICE_WARPS)
+        m = umax(m, abs_bits(col[i * si]));
+    }
+    part[warp][lane] = m;
+    __syncthreads();
+    if (warp == 0 && c < R) {
+      for (int w = 1; w < SLICE_WARPS; ++w) m = umax(m, part[w][lane]);
+      if (m != 0) atomicMax(amax + c, m);
+    }
+    return;
+  }
+  const int c_end = min(R, c0 + SLICE_LANES);
+  for (int c = c0 + warp; c < c_end; c += SLICE_WARPS) {
+    const double* col = x + c * sr;
+    unsigned long long m = 0;
+#pragma unroll 4
+    for (long long i = (long long)blockIdx.x * SLICE_LANES + lane; i < n;
+         i += (long long)gridDim.x * SLICE_LANES)
+      m = umax(m, abs_bits(col[i * si]));
+#pragma unroll
+    for (int o = SLICE_LANES / 2; o > 0; o >>= 1)
+      m = umax(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0 && m != 0) atomicMax(amax + c, m);
+  }
+}
+
+// out[i, r] (8 bytes: the slices of x[i, r]) over the block's rows of its
+// 32-column tile, and scale[r] from the first block of the tile.
+template <bool LANE_ROWS>
+__global__ void __launch_bounds__(SLICE_LANES * SLICE_WARPS)
+slice_i8_kernel(const double* __restrict__ x, long long n, int R,
+                long long si, long long sr,
+                const unsigned long long* __restrict__ amax,
+                double* __restrict__ scale,
+                unsigned long long* __restrict__ out) {
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int c0 = blockIdx.y * SLICE_LANES;
+  if (!LANE_ROWS) {
+    const int c = c0 + lane;
+    if (c >= R) return;
+    const double s = column_scale(amax[c]);
+    if (blockIdx.x == 0 && warp == 0) scale[c] = s;
+    const double* col = x + c * sr;
+#pragma unroll 2
+    for (long long i = (long long)blockIdx.x * SLICE_WARPS + warp; i < n;
+         i += (long long)gridDim.x * SLICE_WARPS)
+      out[i * R + c] = slice_word(col[i * si], s);
+    return;
+  }
+  const int c_end = min(R, c0 + SLICE_LANES);
+  for (int c = c0 + warp; c < c_end; c += SLICE_WARPS) {
+    const double s = column_scale(amax[c]);
+    if (blockIdx.x == 0 && lane == 0) scale[c] = s;
+    const double* col = x + c * sr;
+#pragma unroll 2
+    for (long long i = (long long)blockIdx.x * SLICE_LANES + lane; i < n;
+         i += (long long)gridDim.x * SLICE_LANES)
+      out[i * R + c] = slice_word(col[i * si], s);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side (the tensor maps: wgmma_s8.cuh)
 
 // A column tile the kernels instantiate that divides C.
@@ -463,6 +605,29 @@ cudaError_t launch_fwd(const void* packed, const void* d4k, int* out,
   grid.z = (unsigned)((groups + per - 1) / per);
   plane_dot_fwd_kernel<BN><<<grid, THREADS, smem, s>>>(
       tp, ts, out, (int)M, (int)C, (int)groups, (int)per);
+  return cudaGetLastError();
+}
+
+template <bool LANE_ROWS>
+cudaError_t launch_slices(const double* x, unsigned long long* amax,
+                          double* scale, unsigned long long* out,
+                          long long n, int R, long long si, long long sr,
+                          int sms, cudaStream_t s) {
+  // the blocks of a column tile split the rows so that the grid fills the
+  // card about once
+  const unsigned tiles = (unsigned)((R + SLICE_LANES - 1) / SLICE_LANES);
+  const long long unit = LANE_ROWS ? SLICE_LANES : SLICE_WARPS;
+  long long blocks = (long long)SLICE_BLOCKS_PER_SM * sms / tiles;
+  const long long most = (n + unit - 1) / unit;
+  blocks = blocks > most ? most : blocks;
+  const dim3 grid((unsigned)(blocks < 1 ? 1 : blocks), tiles, 1u);
+  const dim3 block(SLICE_LANES, SLICE_WARPS, 1u);
+  slice_colmax_kernel<LANE_ROWS><<<grid, block, 0, s>>>(x, n, R, si, sr,
+                                                        amax);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  slice_i8_kernel<LANE_ROWS><<<grid, block, 0, s>>>(x, n, R, si, sr, amax,
+                                                    scale, out);
   return cudaGetLastError();
 }
 
@@ -569,4 +734,36 @@ extern "C" int sg_plane_dot_t(const void* packed, const void* dmt, void* out,
     case 128: return (int)launch_t<128>(packed, dmt, o, M, N4, C, s);
     default: return (int)launch_t<256>(packed, dmt, o, M, N4, C, s);
   }
+}
+
+// The slices of f64 ``x`` [n, R] (element (i, r) at x + i si + r sr, in
+// elements; 8-byte aligned): zero ``amax`` (uint64 [R], scratch), then the
+// column max and the slice kernels on ``stream``, writing ``scale`` (f64
+// [R]) and ``out`` (int8 [n, R, 8] row-major, 8-byte aligned).  n = 0
+// gives scale 1.  Needs R < 2^21, else cudaErrorInvalidValue.  Returns the
+// CUDA error code of the launches (0 = success).
+extern "C" int sg_slice_i8(const void* x, void* amax, void* scale, void* out,
+                           long long n, long long R, long long si,
+                           long long sr, int device, void* stream) {
+  if (n < 0 || R < 0 || R >= (1LL << 21) ||
+      reinterpret_cast<uintptr_t>(x) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || R == 0) return (int)err;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(amax, 0, (size_t)R * sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return (int)err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const double* xd = static_cast<const double*>(x);
+  unsigned long long* am = static_cast<unsigned long long*>(amax);
+  double* sc = static_cast<double*>(scale);
+  unsigned long long* o = static_cast<unsigned long long*>(out);
+  // lanes along the rows where they lie closer together than the columns
+  // (a transposed matrix; one column)
+  if (R == 1 || (n > 1 && si < sr))
+    return (int)launch_slices<true>(xd, am, sc, o, n, (int)R, si, sr, sms, s);
+  return (int)launch_slices<false>(xd, am, sc, o, n, (int)R, si, sr, sms, s);
 }

@@ -21,6 +21,10 @@ which the kernels build their A fragments from the packed bytes
 (``csrc/plane_dot.cu``; B1's on the card by a layout kernel there, one
 transpose through shared memory).  The GRM product's pass 1 hands over the
 slices' sample rows as they are (:func:`plane_dot_fwd_rows`).
+
+The slices themselves come, on a CUDA tensor, from the slice kernels of
+the same file (:func:`slice_i8`: the column max, then the slices), whose
+bytes equal the plain chain ``packed_grm._slice_i8_plain``'s.
 """
 
 from __future__ import annotations
@@ -30,8 +34,12 @@ import ctypes
 import torch
 
 from . import _cuda
+from ..utils import profiling
 
-LAUNCHES = {"plane_dot_fwd": 0, "plane_dot_t": 0}   # kernel launches only
+LAUNCHES = {"plane_dot_fwd": 0, "plane_dot_t": 0,   # kernel launches only
+            "slice_i8": 0}
+N_SLICES = 8    # 7 bits/slice -> ~56-bit effective mantissa (full f64); the
+                # slice kernels write an element's slices as one 8-byte word
 MAX_AXIS = 1 << 24      # int32 exactness bound: 128 * (N or M) < 2^31
 _CHUNK_J = 8192         # byte columns per plain-version step
 _CHUNK_M = 4096         # variants per plain-version step (f64 decode of one
@@ -204,6 +212,8 @@ _ARGS = {               # name -> the ctypes argument types of sg_<name>
     + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     "plane_dot_fwd_layout": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4
     + [ctypes.c_int, ctypes.c_void_p],
+    "slice_i8": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
+    + [ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -312,3 +322,30 @@ def plane_dot_t(packed: torch.Tensor, dm: torch.Tensor) -> torch.Tensor:
     if packed.device.type == "cpu":
         return plane_dot_t_plain(packed, dm)
     raise ValueError(f"unsupported device {packed.device}")
+
+
+def slice_i8(x: torch.Tensor):
+    """The slice decomposition of ``packed_grm._slice_i8`` on a CUDA
+    tensor: f64 [n, R] of any strides -> int8 [n, R, N_SLICES] slices and
+    f64 [R] scales, by ``csrc/plane_dot.cu``'s column max and slice kernels
+    (both launches counted once here, and in the counter
+    ``grm.slice_kernel``), bit for bit the plain chain
+    ``packed_grm._slice_i8_plain``: the same IEEE steps per element."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the slice kernels need a CUDA tensor, got "
+                         f"{x.device}")
+    if x.dtype != torch.float64 or x.dim() != 2:
+        raise TypeError(f"expected f64 [n, R], got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    n, R = x.shape
+    d = torch.empty(n, R, N_SLICES, dtype=torch.int8, device=x.device)
+    scale = torch.empty(R, dtype=torch.float64, device=x.device)
+    amax = torch.empty(R, dtype=torch.int64, device=x.device)
+    err = _kernel_fn("slice_i8")(
+        x.data_ptr(), amax.data_ptr(), scale.data_ptr(), d.data_ptr(), n, R,
+        *x.stride(), _device_index(x.device), _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"slice_i8 launch failed: CUDA error {err}")
+    LAUNCHES["slice_i8"] += 1
+    profiling.count("grm.slice_kernel")
+    return d, scale

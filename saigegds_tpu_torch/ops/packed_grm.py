@@ -32,18 +32,30 @@ import torch
 import torch.nn.functional as F
 
 from . import grm_kernel
+from .grm_kernel import N_SLICES
 from ..utils import profiling
-
-N_SLICES = 8   # 7 bits/slice -> ~56-bit effective mantissa (full f64)
 
 
 def _slice_i8(x: torch.Tensor, n_slices: int):
-    """Decompose f64 [N, R] into signed-7-bit slices.
+    """Decompose f64 [N, R] into signed-7-bit slices -> int8 [N, R, S],
+    f64 scales [R].
 
     x[:, r] ~= scale[r] * sum_s d[:, r, s] / (64 * 128**s), |d| <= 64,
-    residual <= scale * 2**(-7*n_slices).  ``torch.round`` rounds half to
-    even like ``jnp.round``, so the slices are bit-identical to the JAX
-    package's.
+    residual <= scale * 2**(-7*n_slices).  A CUDA tensor goes through the
+    slice kernels (``grm_kernel.slice_i8``, S = N_SLICES, or raises), a
+    CPU tensor through :func:`_slice_i8_plain`; both give the same bytes."""
+    if x.device.type == "cuda":
+        if n_slices != N_SLICES:
+            raise ValueError(f"the slice kernels make {N_SLICES} slices, "
+                             f"not {n_slices}")
+        return grm_kernel.slice_i8(x)
+    return _slice_i8_plain(x, n_slices)
+
+
+def _slice_i8_plain(x: torch.Tensor, n_slices: int):
+    """Plain PyTorch version of :func:`_slice_i8`.  ``torch.round`` rounds
+    half to even like ``jnp.round``, so the slices are bit-identical to the
+    JAX package's.
     """
     amax = torch.amax(torch.abs(x), dim=0)
     scale = torch.where(amax > 0, amax, torch.ones_like(amax))
