@@ -137,6 +137,29 @@ def spa_pvalue(g_norm, nonzero, y, mu, var_ratio, cutoff: float = 2.0):
     return p, conv
 
 
+def genotype_rows(G, mac_min: float, missing_max: float, dtype):
+    """Int8 code rows ``G`` [B, n] (3 missing) as a test takes them: the
+    ALT allele count ``ac``, frequency ``af`` and non-missing count
+    ``num``, the dosages ``g`` with missing calls mean-imputed and
+    flipped to the minor allele where ``flip``, the minor allele count
+    ``mac``, and ``valid``, the rows that pass the filters:
+    (g, af, ac, num, mac, flip, valid)."""
+    n = G.shape[1]
+    miss = G == 3
+    raw = torch.where(miss, 0, G).to(dtype)
+    num = (~miss).sum(1).to(dtype)
+    ac = raw.sum(1)
+    af = ac / (2.0 * num)
+    g = torch.where(miss, (ac / num)[:, None], raw)
+    flip = af > 0.5
+    g = torch.where(flip[:, None], 2.0 - g, g)
+    mac = torch.minimum(ac, 2.0 * num - ac)
+    maf = torch.minimum(af, 1.0 - af)
+    valid = (num > 0) & (maf > 0) & (mac >= mac_min) & \
+        ((n - num) / n <= missing_max)
+    return g, af, ac, num, mac, flip, valid
+
+
 def scan_table(codes, y, mu, XV, XXVX_inv, var_ratio: float,
                spa_pval: float, mac_min: float, missing_max: float, dtype,
                device, rows: int = 128) -> dict:
@@ -147,23 +170,12 @@ def scan_table(codes, y, mu, XV, XXVX_inv, var_ratio: float,
     c = lambda a: torch.as_tensor(a).to(device, dtype)
     y, mu, XV, XXVX_inv = c(y), c(mu), c(XV), c(XXVX_inv)
     mu2 = mu * (1.0 - mu)
-    n = codes.shape[1]
     cols = {k: [] for k in ("idx", "AF.alt", "mac", "num", "beta", "SE",
                             "pval", "p.norm", "converged")}
     for s0 in range(0, codes.shape[0], rows):
         G = torch.as_tensor(codes[s0:s0 + rows]).to(device)
-        miss = G == 3
-        raw = torch.where(miss, 0, G).to(dtype)
-        num = (~miss).sum(1).to(dtype)
-        ac = raw.sum(1)
-        af = ac / (2.0 * num)
-        g = torch.where(miss, (ac / num)[:, None], raw)
-        flip = af > 0.5
-        g = torch.where(flip[:, None], 2.0 - g, g)
-        mac = torch.minimum(ac, 2.0 * num - ac)
-        maf = torch.minimum(af, 1.0 - af)
-        valid = (num > 0) & (maf > 0) & (mac >= mac_min) & \
-            ((n - num) / n <= missing_max)
+        g, af, ac, num, mac, flip, valid = genotype_rows(
+            G, mac_min, missing_max, dtype)
         gt = g - (g @ XV.T) @ XXVX_inv.T
         S = gt @ (y - mu)
         var1 = ((gt * gt) @ mu2) * var_ratio

@@ -36,10 +36,11 @@ def gaps(got: list, ref: list) -> dict:
     """The numbers compared over the sampled tables (``got[i]`` the
     program's table as a dict of columns, with the variant indices of
     its rows under ``idx``): the rows tested by one side only, the
-    largest relative gap of each column on the rows both tested (of beta
-    on the scale of the reference's |beta| + SE), and the rows whose
-    ``converged`` differs."""
-    out = dict(rows_mismatch=0, converged_mismatch=0)
+    largest relative gap of each column that the reference's table
+    carries on the rows both tested (of beta on the scale of the
+    reference's |beta| + SE), and the rows whose ``converged`` differs.
+    Only a binary model's table carries ``p.norm`` and ``converged``."""
+    out = dict(rows_mismatch=0)
     worst = {k: 0.0 for k in COLUMNS}
     beta = 0.0
     for g, r in zip(got, ref):
@@ -47,6 +48,8 @@ def gaps(got: list, ref: list) -> dict:
         both, gj, rj = np.intersect1d(gi, ri, return_indices=True)
         out["rows_mismatch"] += len(gi) + len(ri) - 2 * len(both)
         for k in COLUMNS:
+            if k not in r:
+                continue
             worst[k] = max(worst[k], _rel_each(
                 np.asarray(g[k], np.float64)[gj], r[k].numpy()[rj]))
         # beta on the scale of |beta| + SE: a beta near 0 has no relative
@@ -57,9 +60,10 @@ def gaps(got: list, ref: list) -> dict:
         d = np.where(d == 0, 0.0, d / np.where(scale > 0, scale, 1e-300))
         if len(d):
             beta = max(beta, float(np.nan_to_num(d, nan=np.inf).max()))
-        out["converged_mismatch"] += int(
-            (np.asarray(g["converged"], bool)[gj]
-             != r["converged"].numpy().astype(bool)[rj]).sum())
+        if "converged" in r:
+            out["converged_mismatch"] = out.get("converged_mismatch", 0) + \
+                int((np.asarray(g["converged"], bool)[gj]
+                     != r["converged"].numpy().astype(bool)[rj]).sum())
     out["stats_gap"] = max(worst[k] for k in ("AF.alt", "mac", "num"))
     out["beta_gap"] = beta
     out["se_gap"] = worst["SE"]

@@ -7,6 +7,7 @@ from JAX and the JAX package."""
 from __future__ import annotations
 
 import ast
+import dataclasses
 import json
 import os
 import re
@@ -27,6 +28,10 @@ CELLS = sorted(SPEC.cells)
 FIT_CELLS = [c for c in CELLS if SPEC.mix(SPEC.cell(c)["traffic"])["entry"]
              == "fit_lanes"]
 SCAN_CELLS = [c for c in CELLS if c not in FIT_CELLS]
+
+
+def _trait(cell: str) -> str:
+    return SPEC.config(SPEC.cell(cell)["config"])["trait"]["type"]
 
 
 def run_tiny(cell, seconds=0.0, seed=SEED, wrap=None, trace=False):
@@ -132,6 +137,8 @@ def _scan_half_batch(state):
         tabs = real(models, variant_mask, instrument)
         for t in tabs:
             for k in ("beta", "SE", "pval", "p.norm"):
+                if k not in t:      # a quantitative table has no p.norm
+                    continue
                 v = np.array(t[k], np.float64)
                 v[1::2] = v[0::2].mean()
                 t[k] = v
@@ -151,10 +158,27 @@ def _scan_altered(state):
     state._scan = scan
 
 
+def _scan_no_ratio(state):
+    """Each model scanned with its variance-ratio table set to 1, where
+    the reference keeps the model's."""
+    real = state._scan
+
+    def scan(models, variant_mask=None, instrument=None):
+        ones = [dataclasses.replace(m, var_ratio=dict(
+            m.var_ratio, ratio=np.ones_like(m.var_ratio["ratio"])))
+            for m in models]
+        return real(ones, variant_mask, instrument)
+    state._scan = scan
+
+
+# a quantitative model's phase 1 is final: nothing for SPA to leave
+# unchanged, and its variance ratio is the part a binary fault misses
+SCAN_FAULTS = {"binary": (_scan_unchanged, _scan_half_batch, _scan_altered),
+               "quantitative": (_scan_half_batch, _scan_altered,
+                                _scan_no_ratio)}
 FAULTS = [(c, f) for c in FIT_CELLS for f in
           (_fit_unchanged, _fit_half_batch, _fit_altered)] + \
-    [(c, f) for c in SCAN_CELLS for f in
-     (_scan_unchanged, _scan_half_batch, _scan_altered)]
+    [(c, f) for c in SCAN_CELLS for f in SCAN_FAULTS[_trait(c)]]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS,
