@@ -23,6 +23,7 @@ The table is an ordered ``dict`` of numpy columns (no pandas dependency).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from collections import deque
 from typing import Optional, Union
@@ -110,6 +111,20 @@ def _shrink_f32(G: np.ndarray) -> np.ndarray:
         if not np.all((g32 == g) | np.isnan(g)):
             return G
     return G32
+
+
+def _dense_payload(G: np.ndarray) -> np.ndarray:
+    """A dosage block as phase 1 ships it (:func:`_shrink_f32`), on the
+    pack thread: the width check is the span ``scan.shrink``; the rows
+    shipped at each width count under ``scan.dense_rows_f32`` and
+    ``scan.dense_rows_f64``, the payload's bytes under
+    ``scan.dense_bytes``."""
+    with profiling.span("scan.shrink"):
+        out = _shrink_f32(G)
+    wide = "f32" if out.dtype == np.float32 else "f64"
+    profiling.count(f"scan.dense_rows_{wide}", len(out))
+    profiling.count("scan.dense_bytes", out.nbytes)
+    return out
 
 
 def _pack2_block(G: np.ndarray) -> np.ndarray:
@@ -421,7 +436,9 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
     They are the seconds of the spans ``scan.decode``, ``scan.gather``
     and ``scan.spa`` and the counter ``scan.spa_rows``
     (``utils/profiling.py``), which record the rest of the pipeline
-    under a profiler.
+    under a profiler; with ``dense``, also the width check
+    (:func:`_dense_payload`) and each block's phase 1 as the device span
+    ``scan.dense_score``.
     """
     if instrument is not None:
         for k in ("decode_s", "gather_s"):
@@ -476,7 +493,7 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
                         G = np.take(G, cols, axis=1)  # the models' samples
                 # [(rows, payload)]: f64/f32 dosages, uint8 [n,
                 # ceil(N/4)], the int8 codes, or the sparse split
-                parts = [(np.arange(len(idx)), _shrink_f32(G))] if dense \
+                parts = [(np.arange(len(idx)), _dense_payload(G))] if dense \
                     else _packed_parts(G) if sparse else \
                     [(np.arange(len(idx)),
                       _pack2_block(G) if packed_2bit else G)]
@@ -586,7 +603,12 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
 
     for idx, G, parts in block_iter:
         profiling.count("scan.blocks")
-        with profiling.span("scan.dispatch"):
+        # a block's dense phase 1, all models, as a device span on the
+        # scan's device: the card's time from the block's first op to its
+        # last, with any wait for the host's launches in between
+        score = profiling.device_parts(device)("scan.dense_score") if dense \
+            else contextlib.nullcontext()
+        with profiling.span("scan.dispatch"), score:
             results = [[(rows, stack_stats(kerns[p](on[d][p], params,
                                                     payload)))
                         for rows, d, payload in parts] for p in range(P)]

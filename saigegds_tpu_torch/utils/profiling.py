@@ -115,7 +115,9 @@ def profile_trace(logdir: str, *, device) -> Iterator[object]:
     ``scan.spa`` (one model's phase 2) with ``scan.spa.sort``,
     ``scan.spa.wait_payload`` and ``scan.spa.refine``, and on the
     producer threads ``scan.decode``, ``scan.pack`` (with
-    ``scan.gather``), ``scan.upload`` and ``scan.spa.payload``.  The GRM
+    ``scan.gather``, and on the dense route ``scan.shrink``),
+    ``scan.upload`` and ``scan.spa.payload``; on the dense route, each
+    block's phase 1 is the device span ``scan.dense_score``.  The GRM
     product's: ``grm.product``.  The lane fitter's: ``fit.call``,
     ``fit.lane_groups``, ``fit.group``, ``fit.irls``, ``fit.ai_step``,
     ``fit.traces`` and ``fit.pcg``."""
