@@ -58,7 +58,12 @@ and prints no result line):
    rows x N = 430,000 (1% of them ALT-major, an entry per sample; the
    count of dense rows is printed), beside ``torch.zeros`` of its output
    (the zero-fill yardstick), and each of its two stages against its own
-   plain version, with its own time.  Every kernel's time (and its
+   plain version, with its own time; the sample gather of the 2-bit scan
+   (``gather_2bit``, which replaces no TPU kernel: it takes the host's
+   ``np.take`` off the scan) at the scan cells' block, 1,024 variants x
+   488,000 GDS samples to 430,000 sorted columns, and at 37 x 1,031 to
+   1,021 shuffled columns, byte-equal, beside the bytes it must move.
+   Every kernel's time (and its
    yardstick's) is the median of several runs of CUDA events around
    enough calls back to back to span about 2 ms (one call between two
    events, which also times the host's work per call, is printed
@@ -101,8 +106,9 @@ and prints no result line):
    (a MAF spectrum with rare variants, 0.5% missing, 16 variants enriched
    in the fit's cases) over the model's samples and 16 more that the model
    lacks, at shuffled positions, so that every block is gathered to the
-   model's samples on the host; ``assoc_spa(..., device="cuda")`` with
-   1,024-variant blocks; B3 must launch once per block, every p-value must
+   model's samples (on the card: ``gather_2bit`` after the upload);
+   ``assoc_spa(..., device="cuda")`` with 1,024-variant blocks; B3 and
+   the gather must each launch once per block, every p-value must
    lie in [0, 1] and some variants must go through SPA; then the first
    block's first 256 variants (``CPU_ROWS``) on the CPU, whose table
    must agree with the card's within 1e-10 relative, and the first block
@@ -324,7 +330,12 @@ RTOL_USER = 1e-12       # assoc_spa_user against the DS scan's rows
 CAT_EDGES = (10.5, 20.5)  # MAC categories of the categorized fit
 RARE_SHARE = 0.5        # rare GRM markers of the categorized fit's data
 F64_OPS_S = 34e12       # H100 SXM FP64 peak outside the tensor cores
-SOURCES = ["indicator_dot_2bit", "plane_dot", "indicator_dot", "decode_codes"]
+SOURCES = ["indicator_dot_2bit", "plane_dot", "indicator_dot", "decode_codes",
+           "gather_2bit"]
+GATHER_SHAPES = [(37, 1031, 1021, False),
+                 (BLOCK, 488_000, N_SAMPLES, True)]   # B, GDS samples,
+#                 columns kept, sorted: a ragged width, the scan cells'
+GATHER_MAIN = 1         # the JSON line's shape of the gather
 B4_SHAPES = [(37, 1031, SCAN_C), (256, N_SAMPLES, SCAN_C),
              (256, N_SAMPLES, SCAN_WIDE)]       # B, N, C
 SCAN_MAIN = 1           # the JSON line's shape of B3 and B4: C = SCAN_C
@@ -449,8 +460,9 @@ def per_call_ms(fn, runs: int) -> tuple:
 
 
 def kernel_modules():
-    from saigegds_tpu_torch.ops import grm_kernel, score_kernel, sparse_codes
-    return grm_kernel, score_kernel, sparse_codes
+    from saigegds_tpu_torch.ops import gather_2bit, grm_kernel, \
+        score_kernel, sparse_codes
+    return gather_2bit, grm_kernel, score_kernel, sparse_codes
 
 
 def reset_launches():
@@ -778,6 +790,31 @@ def check_slice(x, label: str) -> dict:
     return compare_and_time(
         f"slice_i8 N={N} R={R} {label}", lambda: grm_kernel.slice_i8(x),
         lambda: _slice_i8_plain(x, N_SLICES), 5, bound(24 * N * R, 0))
+
+
+def check_gather(B: int, n_gds: int, n: int, in_order: bool, device,
+                 gen) -> dict:
+    """The 2-bit sample gather on the card against its plain version on
+    the same random [B, ceil(n_gds / 4)] block and ``n`` distinct columns
+    of its ``n_gds`` samples (sorted as the scan's GDS order, or
+    shuffled), byte-equal; the bound reads the block and the int32
+    columns and writes the gathered block."""
+    import torch
+    from saigegds_tpu_torch.ops import gather_2bit as g2
+
+    n4 = -(-n_gds // 4)
+    packed = torch.randint(0, 256, (B, n4), dtype=torch.uint8, device=device,
+                           generator=gen)
+    cols = torch.randperm(n_gds, device=device, generator=gen)[:n]
+    if in_order:
+        cols = cols.sort().values
+    cols = cols.to(torch.int32)
+    return compare_and_time(
+        f"gather_2bit B={B} {n_gds} -> {n} samples "
+        f"({'sorted' if in_order else 'shuffled'})",
+        lambda: g2.gather_2bit(packed, cols),
+        lambda: g2.gather_2bit_plain(packed, cols), 10,
+        bound(B * n4 + B * -(-n // 4) + 4 * n, 0))
 
 
 def slice_input(N: int, R: int, device, gen):
@@ -1977,7 +2014,8 @@ def r_files(model, gds7: str, work: str):
         reset_launches()
         got, _, _ = scan(gds7, back, "cuda", variant_mask=mask)
         expect_launches(f"the scan from the {ext} model",
-                        {"indicator_dot_2bit": 1, "slice_i8": 1})
+                        {"indicator_dot_2bit": 1, "gather_2bit": 1,
+                         "slice_i8": 1})
         for c in want:
             if not np.array_equal(got[c], want[c]):
                 raise AssertionError(f"the scan from the {ext} model "
@@ -2540,7 +2578,7 @@ def phewas_scan(gds7: str, models: list, model_q, scan7: dict,
     wall = time.perf_counter() - t0
     counts = expect_launches("the PheWAS scan",
                              {"indicator_dot_2bit": P * n_blocks,
-                              "slice_i8": P})
+                              "gather_2bit": n_blocks, "slice_i8": P})
     if len(inst["decode_s"]) != n_blocks or \
             len(inst["gather_s"]) != n_blocks:
         raise AssertionError("the PheWAS scan did not decode each block "
@@ -3311,6 +3349,9 @@ def main() -> int:
     b5_checks = [check_b5(ragged_stream_codes(SEED), device)] + \
         [check_b5(rare[:rows], device) for rows in B5_ROWS]
     del rare
+    gather_checks = [check_gather(*shape, device, gen)
+                     for shape in GATHER_SHAPES]
+    torch.cuda.empty_cache()
 
     launch_widths = LaunchWidths()
     work = os.path.join(ROOT, "_smoke")
@@ -3451,6 +3492,7 @@ def main() -> int:
         n_blocks = -(-N_VARIANTS // BLOCK)
         scan_launches = expect_launches("the scan",
                                         {"indicator_dot_2bit": n_blocks,
+                                         "gather_2bit": n_blocks,
                                          "slice_i8": 1})
         check_table(tab)
         refined = int(np.sum(tab["pval"] != tab["p.norm"]))
@@ -3464,14 +3506,16 @@ def main() -> int:
         log(f"scan on the card: {len(tab['pval'])} of {N_VARIANTS} variants "
             f"tested, {inst['spa_n']} through SPA ({refined} changed), "
             f"min p {tab['pval'].min():.3e}, {wall:.2f} s wall, "
-            f"{N_VARIANTS / wall:.1f} variants/s, B3 launches {n_blocks}, "
+            f"{N_VARIANTS / wall:.1f} variants/s, B3 and gather_2bit "
+            f"launches {n_blocks} each, "
             f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         scan7 = dict(wall=wall, decode_s=stages["decode_s"])
         log(f"  stage sums (s, stages overlap): "
             f"{json.dumps(stages)}, spa_s {inst['spa_s']:.3f}; per block: "
             f"decode {stages['decode_s'] / n_blocks:.3f} s, sample gather "
-            f"{stages['gather_s'] / n_blocks:.3f} s")
+            f"{stages['gather_s'] / n_blocks:.3f} s (the host's part: the "
+            f"launch of gather_2bit)")
 
         # the first block's first CPU_ROWS variants on the CPU
         mask = np.zeros(N_VARIANTS, bool)
@@ -3503,6 +3547,7 @@ def main() -> int:
         tab, inst, wall = scan(gds, model_q, "cuda")
         scanq_launches = expect_launches("the quantitative scan",
                                          {"indicator_dot_2bit": n_blocks,
+                                          "gather_2bit": n_blocks,
                                           "slice_i8": 1})
         check_table(tab)
         if inst["spa_n"] or "p.norm" in tab or "converged" in tab:
@@ -3605,6 +3650,7 @@ def main() -> int:
          if c["N"] == N_SAMPLES})
 
     def entry(name, source, line, count, checks, main):
+        # line: the TPU kernel replaced (None: the kernel replaces none)
         keys = ("ms", "plain_ms", "bound_ms", "bound_by")
         return dict(name=name, route="cuda",
                     source=f"saigegds_tpu_torch/csrc/{source}.cu",
@@ -3637,6 +3683,9 @@ def main() -> int:
         entry("decode_codes", "decode_codes",
               "saigegds_tpu/ops/pallas_sparse.py:160",
               agg_launches["decode_codes"], b5_checks, b5_checks[1]),
+        entry("gather_2bit", "gather_2bit", None,
+              scan_launches["gather_2bit"], gather_checks,
+              gather_checks[GATHER_MAIN]),
     ]
     mark("all phases done")
     log(card)

@@ -35,6 +35,7 @@ from ..config import ScanConfig
 from ..io.seqarray import SeqData
 from ..models.nullmodel import NullModel
 from ..ops._cuda import check_device
+from ..ops.gather_2bit import gather_2bit
 from ..ops.score import ScanParams, score_stats_binary, score_stats_quant, \
     spa_refine_binary, stack_stats, unstack_stats
 from ..ops.score_packed import pack_scan_model, score_stats_binary_packed, \
@@ -227,7 +228,7 @@ def _scan_models(seq: SeqData, models: list, config: ScanConfig,
                 sample_index=ii, var_ratio=config.var_ratio, device=dev),
                 model.trait_type == "binary"))
     # the packed route needs hard calls; a model over a subset of the GDS
-    # samples keeps it (the blocks are gathered before the pack)
+    # samples keeps it (each block is gathered to the models' samples)
     dense = not (config.use_packed and seq.has_genotype()
                  and not config.dsnode)
     if dense:
@@ -296,8 +297,9 @@ def assoc_spa_multi(gdsfile, modobjs, config: ScanConfig = ScanConfig(),
     same variants in the same order; each table has the columns of
     :func:`assoc_spa`'s; ``mesh`` as :func:`assoc_spa`'s.  A model over
     only part of the GDS samples keeps the packed route (each block is
-    gathered to those samples before the pack), where the JAX package
-    takes its dense dosage route; both give the same table.  ``res_savefn``: a pattern with ``{}`` (the model's
+    gathered to those samples: on the 2-bit route on the device, after the
+    upload), where the JAX package takes its dense dosage route; both give
+    the same table.  ``res_savefn``: a pattern with ``{}`` (the model's
     index).  ``model_batch`` > 0 scans at most that many models per pass
     of the genotypes.  ``instrument``: as :func:`assoc_spa`'s, for all
     models together.  Returns one table per model.
@@ -420,8 +422,14 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
     dosages (NaN = missing) that ship f64, or f32 where that is lossless,
     to the dense score test, and phase 2 ships the flagged rows the same
     way.  ``cols`` (GDS columns of the models' samples, from
-    :func:`_match_samples`) gathers every block to those samples before it
-    is packed, so phase 1 and phase 2 both see them.  With ``mesh`` (its
+    :func:`_match_samples`) gathers every block to those samples, so phase
+    1 and phase 2 both see them.  On the 2-bit route of one device the
+    block ships packed over all of its GDS samples and is gathered on the
+    device after the upload (``ops/gather_2bit.py``, on the upload
+    thread; counter ``scan.gather_card``), and the drain gathers on the
+    host only the rows that some model flags for phase 2 (span
+    ``scan.gather_flagged``); every other route gathers the whole block on
+    the host before it is packed.  With ``mesh`` (its
     lead is ``device``), each payload's rows are split into one part per
     device of the mesh (``parallel/mesh.shard_variant_batch``), uploaded
     there and scored against that device's copy of the models; phase 2
@@ -430,7 +438,9 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
 
     ``instrument``: optional dict; per-block wall-times land in lists
     under ``decode_s`` (GDS block read, decode thread) and ``gather_s``
-    (the sample gather, pack thread, when ``cols`` is given), plus scalars
+    (the host seconds of the sample gather, when ``cols`` is given: the
+    launch on the upload thread where the device gathers, else the host
+    gather on the pack thread), plus scalars
     ``spa_s`` (phase-2 time, all models) and ``spa_n`` (variants refined,
     all models).  Stages overlap, so sums exceed wall-clock by design.
     They are the seconds of the spans ``scan.decode``, ``scan.gather``
@@ -462,6 +472,12 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
             copies = [replicate(mesh, st) for st in states]
             on = {d: [c[d] for c in copies] for d in mesh.distinct()}
             sparse = False
+        # the 2-bit route of one device gathers on the device, with the
+        # models' columns uploaded once for the call
+        card_gather = cols is not None and packed_2bit and mesh is None \
+            and not (dense or sparse)
+        if card_gather:
+            cols_on = _to_device(np.asarray(cols, np.int32), device)
     rows_idx = []
     outs = [[] for _ in range(P)]
     spa_G = [[] for _ in range(P)]      # flagged variants for phase 2
@@ -487,7 +503,7 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
         for idx, G in it:
             with profiling.span("scan.pack"):
                 G = np.asarray(G, np.float64 if dense else np.int8)
-                if cols is not None:
+                if cols is not None and not card_gather:
                     with profiling.span("scan.gather", instrument,
                                         "gather_s"):
                         G = np.take(G, cols, axis=1)  # the models' samples
@@ -512,6 +528,13 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
             with profiling.span("scan.upload"):
                 dev_parts = [part for rows, pl in parts
                              for part in _upload(rows, pl)]
+                if card_gather:
+                    # on the stream of the upload, which phase 1 follows
+                    with profiling.span("scan.gather", instrument,
+                                        "gather_s"):
+                        dev_parts = [(rows, d, gather_2bit(pl, cols_on))
+                                     for rows, d, pl in dev_parts]
+                    profiling.count("scan.gather_card")
             yield idx, G, dev_parts
 
     block_iter = _prefetch_blocks(
@@ -523,7 +546,7 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
         nonlocal row0, spa_bytes
         idx, G, results = window.popleft()
         n = len(idx)
-        n_valid = 0
+        flagged = []
         for p in range(P):
             valid = np.empty(n, bool)
             need = np.empty(n, bool)
@@ -536,19 +559,28 @@ def _scan_blocks_multi(models, params, block_iter, device: torch.device,
                 for k in f:
                     f[k][rows] = getattr(res, k)
             if p == 0:
-                rows_idx.append(idx[valid])
-                n_valid = int(valid.sum())
+                tested = np.flatnonzero(valid)
+                rows_idx.append(idx[tested])
             out = {k: v[valid] for k, v in f.items()}
             out["converged"] = np.isfinite(out["pval"])
             out["pval_noadj"] = out["pval"].copy()
-            needv = need[valid]
-            if needv.any():
-                Gf = G[valid][needv]   # codes ship 2-bit, dosages f64/f32
-                spa_G[p].append(Gf)
-                spa_rows[p].append(row0 + np.flatnonzero(needv))
-                spa_bytes += Gf.nbytes
+            flagged.append(need[valid])
             outs[p].append(out)
-        row0 += n_valid
+        # the rows some model flags, once for all models, as phase 2 ships
+        # them (codes 2-bit, dosages f64/f32): of the models' samples
+        anyf = np.logical_or.reduce(flagged)
+        if anyf.any():
+            Gf = G[tested[anyf]]
+            if card_gather:
+                with profiling.span("scan.gather_flagged"):
+                    Gf = np.take(Gf, cols, axis=1)
+            for p in range(P):
+                if flagged[p].any():
+                    Gp = Gf[flagged[p][anyf]]
+                    spa_G[p].append(Gp)
+                    spa_rows[p].append(row0 + np.flatnonzero(flagged[p]))
+                    spa_bytes += Gp.nbytes
+        row0 += len(tested)
         # bound host memory: refine incrementally once the flagged sets
         # grow past the budget
         if spa_bytes >= SPA_FLUSH_BYTES:

@@ -183,3 +183,67 @@ def test_res_savefn_and_model_batch(data):
     _assert_bit_equal(batched[2], got[0])
     back = load_pval(str(tmp / "b_2.gds"))
     np.testing.assert_array_equal(back["pval"], got[0]["pval"])
+
+
+@pytest.fixture(scope="module")
+def ordered_subset(tmp_path_factory):
+    """Three binary models (two of one phenotype with different variance
+    ratios, one of another phenotype), a GDS of exactly their samples in
+    their order, and a superset GDS: N_EXTRA more samples at shuffled
+    positions, among which the models' samples keep that order."""
+    tmp = tmp_path_factory.mktemp("torch_card_gather")
+    rng = np.random.default_rng(44)
+    X, y = synth_pheno(rng, N_SAMPLES)
+    codes = synth_codes(rng, N_VARIANTS, N_SAMPLES, y=y)
+    own = str(tmp / "own.gds")
+    write_seqarray_gds(own, codes)
+    n_all = N_SAMPLES + N_EXTRA
+    at = np.sort(rng.choice(n_all, N_SAMPLES, replace=False))
+    wide = rng.binomial(2, 0.3, (N_VARIANTS, n_all)).astype(np.int8)
+    wide[:, at] = codes
+    sid = np.arange(10**6, 10**6 + n_all, dtype=np.int32)
+    sid[at] = np.arange(1, N_SAMPLES + 1)
+    sup = str(tmp / "superset.gds")
+    write_seqarray_gds(sup, wide, sample_id=sid)
+    X2, y2 = synth_pheno(rng, N_SAMPLES)
+    models = [NullModel.from_arrays(vars(jax_null_model(
+        Xm, ym, var_ratio_table(v)))) for Xm, ym, v in (
+            (X, y, "pooled"), (X, y, "cat"), (X2, y2, "pooled"))]
+    return own, sup, models
+
+
+@pytest.mark.parametrize("route, on_card", [
+    ("two_bit", True), ("int8", False), ("dense", False)])
+def test_gather_routes_equal_own_samples(ordered_subset, route, on_card):
+    """Models over a shuffled subset of a superset GDS: each route's
+    tables equal, bit for bit, each model's one-model scan over a GDS that
+    holds only their samples in the same order, SPA rows included.  The
+    2-bit route gathers every block on the device (``scan.gather_card``
+    once a block; the flagged rows on the host, ``scan.gather_flagged``),
+    the int8 and dense routes on the host; ``gather_s`` has one entry a
+    block either way.  No model flags every row that some model flags, so
+    each takes its own rows out of the drain's union, where a one-model
+    scan's union is its own set."""
+    from torch.profiler import ProfilerActivity, profile
+    from saigegds_tpu_torch.utils import profiling
+
+    own, sup, models = ordered_subset
+    cfg = ScanConfig(block_size=BLOCK, packed_2bit=route != "int8",
+                     use_packed=route != "dense")
+    n_blocks = -(-N_VARIANTS // BLOCK)
+    inst = {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = assoc_spa_multi(sup, models, cfg, instrument=inst,
+                              device="cpu")
+    counts = profiling.counts()
+    names = {s.name for s in profiling.spans()}
+    assert counts.get("scan.gather_card", 0) == (n_blocks if on_card else 0)
+    assert ("scan.gather_flagged" in names) == on_card
+    assert len(inst["gather_s"]) == n_blocks
+    assert inst["spa_n"] > 0
+    flagged = [g["p.norm"] <= cfg.spa_pval for g in got]
+    union = np.logical_or.reduce(flagged)
+    assert all(f.sum() < union.sum() for f in flagged)
+    for g, m in zip(got, models):
+        assert _adjusted(g["pval"], g["p.norm"]).sum() >= 3
+        _assert_bit_equal(g, assoc_spa(own, m, cfg, device="cpu"))
